@@ -1,0 +1,40 @@
+"""sixdgs_torch — the PyTorch and CUDA port of sixdgs_tpu (6DGS).
+
+Single-image 6-DoF camera pose estimation against a trained 3DGS scene via
+ellipsoid-surface ray casting and cross-attention ray scoring, on an NVIDIA
+Hopper GPU. It mirrors the JAX package's relative paths and function names;
+plain tensor math is PyTorch, and each TPU kernel on the ported path is a
+kernel written by hand for sm_90a (``csrc/``), built with nvcc at first use.
+
+Layout (ported so far):
+  ops/      SH, quaternions, sym-eig 3x3, LS lines, fused attention scores
+  scene/    GaussianScene, byte-compatible PLY codec, structures
+  rays/     quadricell surface sampling, PCA normals, ray engine
+  pose/     DINOv2 ViT-S/14, ray MLP, attention, camera-up head, loss,
+            solver, evaluation
+  weights   the JAX package's param dicts -> the port's modules
+
+Entry points run on "cuda" unless the caller passes ``device="cpu"``.
+Importing the package needs neither nvcc nor a GPU.
+"""
+
+__version__ = "0.1.0"
+
+
+def __getattr__(name):
+    """Lazy top-level API (keeps `import sixdgs_torch` light)."""
+    import importlib
+
+    api = {
+        "GaussianScene": ("sixdgs_torch.scene.gaussians", "GaussianScene"),
+        "load_ply": ("sixdgs_torch.scene.gaussians", "load_ply"),
+        "generate_rays": ("sixdgs_torch.rays.engine", "generate_rays_from_scene"),
+        "score_image": ("sixdgs_torch.pose.id_module", "score_image"),
+        "solve_pose": ("sixdgs_torch.pose.solver", "solve_pose"),
+        "eval_image": ("sixdgs_torch.pose.evaluate", "eval_image"),
+        "test_pose_estimation": ("sixdgs_torch.pose.evaluate", "test_pose_estimation"),
+    }
+    if name in api:
+        module, attr = api[name]
+        return getattr(importlib.import_module(module), attr)
+    raise AttributeError(f"module 'sixdgs_torch' has no attribute {name!r}")

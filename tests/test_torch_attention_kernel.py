@@ -1,0 +1,105 @@
+"""The port's fused attention scores (B1) against sixdgs_tpu's Pallas kernel.
+
+On the CPU the wrapper runs its plain version, held here against the JAX
+kernel in interpret mode in all three precision modes (the tolerance of
+tests/test_attention_kernel.py). The CUDA kernel itself is held against the
+plain version in tests/test_torch_cuda_kernels.py, which imports no JAX so
+that it also runs on a machine with a card and no JAX.
+"""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from sixdgs_tpu.ops import attention_kernel as jak
+from sixdgs_tpu.pose import modules as jmod
+from sixdgs_torch import weights
+from sixdgs_torch.ops import attention_kernel as tak
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x))
+
+
+def _problem(seed=0, P=256, d=128, N=1024, n_invalid=100):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(P, d)).astype(np.float32)
+    feats = rng.normal(size=(N, d)).astype(np.float32)
+    wk = (rng.normal(size=(d, d)) * 0.05).astype(np.float32)
+    bk = (rng.normal(size=(d,)) * 0.1).astype(np.float32)
+    pmask = (rng.uniform(size=P) > 0.3).astype(np.float32)
+    valid = np.ones(N, np.float32)
+    valid[N - n_invalid:] = 0.0
+    return q, feats, wk, bk, pmask, valid
+
+
+class TestPlainVersusPallas:
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "bf16_split3"])
+    def test_scores_and_residuals_match(self, mode):
+        q, feats, wk, bk, pmask, valid = _problem()
+        P, N = q.shape[0], feats.shape[0]
+        out, m, s = jak._fused_fwd_call_train(
+            *map(jnp.asarray, (q, feats, wk, bk)), jnp.asarray(pmask).reshape(P, 1),
+            jnp.asarray(valid).reshape(1, N), 256, True, mode)
+        ref = np.asarray(jak.attention_scores_fused(
+            *map(jnp.asarray, (q, feats, wk, bk, pmask, valid)), block=256,
+            interpret=True, mode=mode))
+        np.testing.assert_array_equal(ref, np.asarray(out)[0])
+
+        scores, tm, ts = tak.attention_scores_fwd(*map(_t, (q, feats, wk, bk, pmask, valid)),
+                                                  mode=mode)
+        np.testing.assert_allclose(scores.numpy(), ref, atol=1e-5, rtol=1e-4)
+        np.testing.assert_allclose(tm.numpy(), np.asarray(m), atol=1e-5, rtol=1e-4)
+        np.testing.assert_allclose(ts.numpy(), np.asarray(s), atol=1e-5, rtol=1e-4)
+        out_only = tak.attention_scores_fused(*map(_t, (q, feats, wk, bk, pmask, valid)),
+                                              mode=mode)
+        np.testing.assert_array_equal(out_only.numpy(), scores.numpy())
+        np.testing.assert_allclose(scores[N - 100:].numpy(), 0.0, atol=1e-12)
+        np.testing.assert_allclose(scores.sum().item(), pmask.sum(), rtol=1e-4)
+
+    def test_all_invalid_rows_keep_the_neg_sentinel(self):
+        """NEG = -9e15 (not -inf): with every ray invalid each patch spreads
+        uniformly, as in the Pallas kernel."""
+        q, feats, wk, bk, pmask, _ = _problem(seed=1, N=512)
+        valid = np.zeros(512, np.float32)
+        ref = np.asarray(jak.attention_scores_fused(
+            *map(jnp.asarray, (q, feats, wk, bk, pmask, valid)), block=256,
+            interpret=True, mode="f32"))
+        out = tak.attention_scores_fused(*map(_t, (q, feats, wk, bk, pmask, valid)),
+                                         mode="f32").numpy()
+        np.testing.assert_allclose(out, ref, atol=1e-7)
+        np.testing.assert_allclose(out, pmask.sum() / 512, rtol=1e-5)
+
+    def test_fused_ray_scores_matches(self):
+        rng = np.random.default_rng(2)
+        P, N, d = 256, 512, 64
+        jp = jmod.init_id_module(jax.random.key(0), feature_dim=d)
+        tm = weights.id_module_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+        img = rng.normal(size=(P, d + 14)).astype(np.float32)
+        rays = rng.normal(size=(N, d)).astype(np.float32)
+        pmask = rng.uniform(size=P) > 0.5
+        valid = np.ones(N, bool)
+        ref = np.asarray(jak.fused_ray_scores(jp, *map(jnp.asarray, (img, rays, pmask, valid)),
+                                              block=128, interpret=True))
+        with torch.no_grad():
+            out = tak.fused_ray_scores(tm, *map(_t, (img, rays, pmask, valid))).numpy()
+        np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-4)
+
+
+class TestWrapperContract:
+    def test_forward_only_and_modes(self):
+        q, feats, wk, bk, pmask, valid = map(_t, _problem(N=64, n_invalid=4))
+        wk.requires_grad_(True)
+        with pytest.raises(RuntimeError, match="forward only"):
+            tak.attention_scores_fused(q, feats, wk, bk, pmask, valid)
+        with torch.no_grad():
+            tak.attention_scores_fused(q, feats, wk, bk, pmask, valid)
+        with pytest.raises(ValueError, match="mode"):
+            tak.attention_scores_fused(q, feats, wk.detach(), bk, pmask, valid, mode="tf32")
+
+    def test_cpu_path_does_not_count_launches(self):
+        before = tak.attention_scores_fused.launches
+        tak.attention_scores_fused(*map(_t, _problem(N=64, n_invalid=4)))
+        assert tak.attention_scores_fused.launches == before
