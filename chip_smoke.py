@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
 (``CUDA_HOME`` or /usr/local/cuda). Phases, each of which raises on failure:
 
   1. build every CUDA kernel of the pose path from ``sixdgs_torch/csrc``
-     (one nvcc per source, all started together);
+     (one source, one nvcc);
   2. hold each kernel against its plain PyTorch version on the card at the
      main path's shapes (B1: P=256, d=384, N in {32768, 131072}, all three
      precision modes, a partial patch mask and a padded tail of invalid
@@ -22,7 +22,8 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      scores are held against the fused_attention=False path, and the
      target-score solve must recover the ground-truth camera;
   4. timing with CUDA events (kernel, plain version, bound) and per-image
-     eval_image time.
+     eval_image time. B1's ``launches`` counts calls of its wrapper; each is
+     three CUDA kernels (b1_stats, b1_combine, b1_emit).
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -50,9 +51,11 @@ N_IMAGES = 4
 IMAGE_HW = 800
 KERNEL_NS = (32768, 131072)
 P, D = 256, 384
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 FMA flop/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FMA flop/s
+# outside the tensor cores, bf16 tensor-core flop/s
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 # kernel vs plain: f32-class modes differ only in summation order; bf16
 # rounds K inside the kernel and in the plain version at the same points,
 # but an f32 K that lands on a bf16 rounding boundary can round apart
@@ -102,13 +105,19 @@ def b1_inputs(n: int, gen):
     return q, feats, wk, bk, pmask, valid
 
 
-def b1_bound(n: int):
-    """(bound_ms, bound_by) of one B1 call: bench.py's flop count (both
-    passes recompute K and the logits) at the f32 peak, against each input
-    read once and each output written once."""
-    flops = 2 * (2 * n * D * D + 2 * P * n * D)
+def b1_flops(n: int) -> int:
+    """Flops the function needs: K = feats Wk and the logits q K^T, once."""
+    return 2 * (n * D * D + P * n * D)
+
+
+def b1_bound(n: int, mode: str):
+    """(bound_ms, bound_by) of one B1 call: the function's flops at the peak
+    rate of its operand type (bf16 tensor cores in "bf16", f32 FMA in the
+    f32-class modes), against each input read once and each output written
+    once."""
+    rate = BF16_FLOPS_PER_S if mode == "bf16" else F32_FLOPS_PER_S
     nbytes = 4 * (P * D + n * D + D * D + D + P + n + n + 2 * P)
-    t_ops, t_bytes = flops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = b1_flops(n) / rate, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -212,8 +221,9 @@ def main() -> int:
 
     # 1. build
     t0 = time.perf_counter()
-    secs = _build.build(["attention_scores"])
-    log(f"phase 1 build: {secs} ({time.perf_counter() - t0:.2f} s wall)")
+    secs = _build.build("attention_scores")
+    log(f"phase 1 build: attention_scores {secs:.2f} s "
+        f"({time.perf_counter() - t0:.2f} s wall)")
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -295,16 +305,22 @@ def main() -> int:
     ins = b1_inputs(n, gen)
     ms = cuda_ms(lambda: ak.attention_scores_fused(*ins))
     plain_ms = cuda_ms(lambda: ak.attention_scores_plain(*ins, mode="bf16_split3"))
-    bound_ms, bound_by = b1_bound(n)
+    bound_ms, bound_by = b1_bound(n, "bf16_split3")
+    # the kernel recomputes K and the logits in its second pass, so it
+    # executes twice the flops the bound counts (bench.py's formula)
+    log(f"B1 n={n}: needed {b1_flops(n) / 1e9:.2f} GFLOP, executed "
+        f"{2 * b1_flops(n) / 1e9:.2f} GFLOP; split3 kernel at "
+        f"{2 * b1_flops(n) / ms / 1e9:.2f} TFLOP/s executed, "
+        f"{bound_ms / ms:.3f} of its bound")
     times = {}
     for nn in KERNEL_NS:
         big = ins if nn == n else b1_inputs(nn, gen)
         for mode in ak.MODES:
             times[f"n={nn} {mode}"] = cuda_ms(
                 lambda: ak.attention_scores_fused(*big, mode=mode), reps=10)
+            times[f"n={nn} {mode} bound"] = b1_bound(nn, mode)[0]
         times[f"n={nn} plain"] = cuda_ms(
             lambda: ak.attention_scores_plain(*big, mode="bf16_split3"), reps=10)
-        times[f"n={nn} bound"] = b1_bound(nn)[0]
     log("B1 times ms: " + json.dumps(times))
 
     per_image = {}
@@ -326,7 +342,7 @@ def main() -> int:
         f"total {time.perf_counter() - t_start:.1f} s")
 
     record = {
-        "name": "B1 attention_scores_fused (_fwd_kernel_train)",
+        "name": "B1 attention_scores_fused (_fwd_kernel_train; 3 CUDA kernels per launch)",
         "route": "cuda",
         "source": "sixdgs_torch/csrc/attention_scores.cu",
         "replaces": "sixdgs_tpu/ops/attention_kernel.py:116",

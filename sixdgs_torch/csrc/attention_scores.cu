@@ -23,9 +23,11 @@
 //                  column sums for its BN rays.
 // Every reduction runs in a fixed order, so results are deterministic.
 //
-// Bound: 2 * (2 N D^2 + 2 P N D) flops per call (both passes recompute K and
-// the logits) against ~2 N D * 4 bytes of traffic, so the work is f32-compute
-// bound on the card (about 0.48 ms at N = 32768, D = 384 at 67 TFLOP/s).
+// Bound: the function needs 2 * (N D^2 + P N D) flops (16.1 GFLOP at
+// N = 32768, D = 384) against ~2 N D * 4 bytes of traffic, so it is bound by
+// compute on the card: 0.240 ms at the 67 TFLOP/s f32 peak. This kernel
+// executes twice those flops, since b1_emit recomputes K and the logits (as
+// the TPU kernel's second pass does).
 // This first version stages tiles in shared memory and runs plain f32 FMA on
 // the CUDA cores with a 4x12 / 4x8 register tile per thread; tensor cores
 // (wgmma) and TMA are left for a later version.
@@ -374,18 +376,9 @@ int b1_attention_scores_fwd(const float* q_t, const float* feats,
                             int bf16, float sqrt_d, void* stream) {
   if (p != P || n <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return (int)launch_mode<64>(bf16, q_t, feats, wk, bk, pmask, valid,
-                                  scores, m_out, s_out, m_part, s_part, n,
-                                  sqrt_d, st);
-    case 384:
-      return (int)launch_mode<384>(bf16, q_t, feats, wk, bk, pmask, valid,
-                                   scores, m_out, s_out, m_part, s_part, n,
-                                   sqrt_d, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (d != 384) return (int)cudaErrorInvalidValue;  // DINOv2-S width only
+  return (int)launch_mode<384>(bf16, q_t, feats, wk, bk, pmask, valid, scores,
+                               m_out, s_out, m_part, s_part, n, sqrt_d, st);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
-Each ``csrc/<name>.cu`` becomes ``build/torch_kernels/<name>-<hash>.so`` at
+``csrc/<name>.cu`` becomes ``build/torch_kernels/<name>-<hash>.so`` at
 first use, keyed on a hash of the source and the compiler flags, so an
 edited source is rebuilt and an unchanged one is loaded as it is. The
 sources include no PyTorch header and export a plain C interface, which
@@ -17,7 +17,6 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -25,8 +24,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-
-_loaded: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -43,43 +40,29 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{key}.so"
 
 
-def build(names: Iterable[str]) -> Dict[str, float]:
-    """Compile every named source that has no current library, one nvcc
-    process per source, all started together. Returns the wall seconds of
-    each build (0.0 where the library was already current) and raises with
-    nvcc's output when any build fails. ptxas's register and shared-memory
-    report goes to ``<lib>.log`` beside each library."""
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless its library is current. Returns the
+    wall seconds of the build (0.0 where the library was already current)
+    and raises with nvcc's output when it fails. ptxas's register and
+    shared-memory report goes to ``<lib>.log`` beside the library."""
+    out = _lib_path(name)
+    if out.exists():
+        return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT),
-                       tmp, out, time.perf_counter())
-    seconds = {name: 0.0 for name in names}
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        out.with_suffix(".log").write_bytes(log)
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log.decode(errors='replace')}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return seconds
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    out.with_suffix(".log").write_bytes(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}:\n"
+                           + proc.stdout.decode(errors="replace"))
+    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    return time.perf_counter() - t0
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    lib = _loaded.get(name)
-    if lib is None:
-        build([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        _loaded[name] = lib
-    return lib
+    """``csrc/<name>.cu`` loaded, built first if needed. Callers cache it
+    and set its function signatures once."""
+    build(name)
+    return ctypes.CDLL(str(_lib_path(name)))

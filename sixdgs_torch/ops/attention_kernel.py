@@ -12,10 +12,14 @@ kernel in ``csrc/attention_scores.cu``, which replaces the TPU kernel
 ``_fwd_kernel_train`` (launched by ``_fused_fwd_call_train``). The TPU
 kernel's sequential two-pass grid becomes split-N on the card: per-CTA
 partial (max, sum-exp), a combine, and an emit pass that recomputes K and
-the logits, so the [P, N] logits never reach device memory. Per call it
-does 2 * (2 N d^2 + 2 P N d) flops (bench.py's formula: both passes
-recompute K and the logits) against ~2 N d * 4 bytes, so it is bound by
-f32 compute on the card; see the source note in the .cu file.
+the logits, so the [P, N] logits never reach device memory. One counted
+launch is three CUDA kernels (b1_stats, b1_combine, b1_emit).
+
+Bound: the function needs 2 (N d^2 + P N d) flops (16.1 GFLOP at N=32768,
+d=384) against ~2 N d * 4 bytes, so it is bound by compute on the card:
+0.240 ms at the 67 TFLOP/s f32 peak. The kernel executes twice those flops
+(bench.py's 2 (2 N d^2 + 2 P N d)), because its second pass recomputes K
+and the logits, as the TPU kernel's does.
 
 On a CPU tensor it runs ``attention_scores_plain``, the same arithmetic in
 plain PyTorch. A CUDA tensor never falls back to the plain version.
@@ -39,7 +43,7 @@ import torch
 NEG = -9e15
 MODES = ("f32", "bf16", "bf16_split3")
 N_PATCHES = 256  # the kernel's patch count (16 x 16 DINOv2 grid)
-KERNEL_WIDTHS = (64, 384)  # the narrow test width and DINOv2-S
+KERNEL_WIDTH = 384  # DINOv2-S
 
 
 def _dot(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
@@ -69,8 +73,8 @@ def attention_scores_plain(q, ray_feats, wk, bk, pmask, valid,
 
 def _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid):
     P, d = q.shape
-    if P != N_PATCHES or d not in KERNEL_WIDTHS:
-        raise ValueError(f"kernel takes P={N_PATCHES} and d in {KERNEL_WIDTHS}, "
+    if P != N_PATCHES or d != KERNEL_WIDTH:
+        raise ValueError(f"kernel takes P={N_PATCHES} and d={KERNEL_WIDTH}, "
                          f"got P={P}, d={d}")
     for name, t in (("q", q), ("ray_feats", ray_feats), ("wk", wk),
                     ("bk", bk), ("pmask", pmask), ("valid", valid)):
@@ -89,16 +93,29 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
-    from sixdgs_torch.ops._build import library
+_lib = None
 
+
+def _library() -> ctypes.CDLL:
+    """csrc/attention_scores.cu, built and loaded at first use, with its C
+    signatures set once."""
+    global _lib
+    if _lib is None:
+        from sixdgs_torch.ops._build import library
+
+        lib = library("attention_scores")
+        lib.b1_attention_scores_fwd.restype = ctypes.c_int
+        lib.b1_attention_scores_fwd.argtypes = (
+            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+            + [ctypes.c_float, ctypes.c_void_p])
+        lib.b1_rays_per_block.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
     _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid)
-    lib = library("attention_scores")
-    fn = lib.b1_attention_scores_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 11
-                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
-    lib.b1_rays_per_block.restype = ctypes.c_int
+    lib = _library()
     P, d = q.shape
     N = ray_feats.shape[0]
     nb = -(-N // lib.b1_rays_per_block())
@@ -111,10 +128,10 @@ def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
     s_part = torch.empty(P, nb, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*[t.data_ptr() for t in ins],
-                 scores.data_ptr(), m.data_ptr(), s.data_ptr(),
-                 m_part.data_ptr(), s_part.data_ptr(),
-                 N, d, P, int(mode == "bf16"), math.sqrt(d), stream)
+        err = lib.b1_attention_scores_fwd(
+            *[t.data_ptr() for t in ins], scores.data_ptr(), m.data_ptr(),
+            s.data_ptr(), m_part.data_ptr(), s_part.data_ptr(),
+            N, d, P, int(mode == "bf16"), math.sqrt(d), stream)
     if err != 0:
         raise RuntimeError(f"attention-score kernel launch failed: CUDA error {err}")
     attention_scores_fused.launches += 1
@@ -158,7 +175,8 @@ def attention_scores_fused(q, ray_feats, wk, bk, patch_mask, ray_valid,
                                 mode)[0]
 
 
-attention_scores_fused.launches = 0  # kernel launches on CUDA tensors
+# launches on CUDA tensors; each is three CUDA kernels (stats, combine, emit)
+attention_scores_fused.launches = 0
 
 
 def fused_ray_scores(id_module, img_feats_pe, ray_feats, patch_mask, ray_valid,

@@ -36,8 +36,6 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "tpu_hw: runs Pallas kernels non-interpret on a real TPU "
         "(enable with SIXDGS_TPU_TESTS=1)")
-    config.addinivalue_line(
-        "markers", "cuda: runs a sixdgs_torch CUDA kernel; skips without a GPU")
 
 
 def pytest_collection_modifyitems(config, items):
