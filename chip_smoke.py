@@ -7,12 +7,13 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
 (``CUDA_HOME`` or /usr/local/cuda). Phases, each of which raises on failure:
 
   1. build every CUDA kernel of the pose path from ``sixdgs_torch/csrc``
-     (one source, one nvcc);
+     (one nvcc per source, all started together);
   2. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes (B1: P=256, d=384, N in {32768, 131072}, all three
+     main paths' shapes (P=256, d=384, N in {32768, 131072}, all three
      precision modes, a partial patch mask and a padded tail of invalid
-     rays);
-  3. the main path at full width: a random 262,144-Gaussian SH-3 scene
+     rays): B1, the forward, and B2, the backward on B1's residuals and a
+     random score cotangent, plus B2 with every ray invalid;
+  3. the serving path at full width: a random 262,144-Gaussian SH-3 scene
      written with save_ply and read back with load_ply, rays from the
      default config (32,768-ray budget, 1,000 ellipsoids, 20-NN normals),
      DINOv2-S/14 (12 blocks, 384 wide, 6 heads, the hub checkpoint's 37x37
@@ -21,9 +22,17 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      random masks. Launch counts are zeroed just before and read just after;
      scores are held against the fused_attention=False path, and the
      target-score solve must recover the ground-truth camera;
-  4. timing with CUDA events (kernel, plain version, bound) and per-image
-     eval_image time. B1's ``launches`` counts calls of its wrapper; each is
-     three CUDA kernels (b1_stats, b1_combine, b1_emit).
+  4. the training path at full width: PoseTrainer(fused_attention=True) on
+     the same scene and models, 16 cameras on a ring with random 800x800
+     RGBA images, the default config (32 images per step, rays renewed
+     every 10 iterations), 12 steps. Launch counts are zeroed just before
+     and read just after (B1 and B2 each 32 x 12); every loss must be
+     finite; a twin trainer with fused_attention=False from the same seed
+     must agree on the first step's loss and gradients; one validate();
+     per-step time and peak memory, fused and plain;
+  5. timing with CUDA events (each kernel, its plain version, its bound)
+     and per-image eval_image time. B1's ``launches`` counts calls of its
+     wrapper, each three CUDA kernels; B2's, each eight.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -41,6 +50,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -61,9 +71,26 @@ BF16_FLOPS_PER_S = 989e12
 # but an f32 K that lands on a bf16 rounding boundary can round apart
 TOL = {"f32": 1e-5, "bf16_split3": 1e-5, "bf16": 1e-3}
 STAT_TOL = {"f32": 1e-5, "bf16_split3": 1e-5, "bf16": 1e-2}
+# B2 vs plain, each gradient against its max |plain|: sums over up to 131k
+# rays in another order than cuBLAS; in bf16 a dlog or dk on a rounding
+# boundary rounds apart. dbk is zero in exact arithmetic (a shift of every
+# logit of a patch by q_p . bk leaves its softmax unchanged), so it is held
+# against max_col sum_j |dk_j| instead
+B2_TOL = {"f32": 1e-4, "bf16_split3": 1e-4, "bf16": 1e-2}
 # full pipeline, fused vs plain scorer: both f32, but the q/k projections,
 # logits and softmax sums run in different orders (cuBLAS vs the kernel)
 PIPELINE_TOL = 1e-4
+# training, fused vs plain: first-step loss (relative) and each parameter's
+# gradient against its max |grad|; the k-projection bias and the ray MLP's
+# last bias have a true gradient of zero (as dbk above), so they are held
+# against the largest gradient entry of the module
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
+ZERO_GRAD_PARAMS = ("attention.k.bias", "ray_mlp.l4.bias")
+N_TRAIN_CAMERAS = 16
+N_TRAIN_STEPS = 12
+N_PLAIN_STEPS = 4
+KERNEL_SOURCES = ("attention_scores", "attention_scores_bwd")
 
 
 def log(msg: str) -> None:
@@ -148,6 +175,79 @@ def phase_kernels(ak, gen):
     return main_err
 
 
+def b2_flops(n: int) -> int:
+    """Flops the backward needs: K, dfeats = dk Wk^T and dWk = feats^T dk
+    (3 N d^2), the logits, dk = dlog^T q and dq = dlog K (3 P N d)."""
+    return 2 * (3 * n * D * D + 3 * P * n * D)
+
+
+def b2_bound(n: int, mode: str):
+    """(bound_ms, bound_by) of one B2 call, as b1_bound: inputs q, feats,
+    Wk, bk, pmask, valid, m, s, g read once, dq, dfeats, dWk, dbk written
+    once."""
+    rate = BF16_FLOPS_PER_S if mode == "bf16" else F32_FLOPS_PER_S
+    nbytes = 4 * (2 * P * D + 2 * n * D + 2 * D * D + 2 * D + 3 * P + 2 * n)
+    t_ops, t_bytes = b2_flops(n) / rate, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def dbk_scale(ins, m, s, g) -> float:
+    """max_col sum_j |dk_j|, the size of the terms dbk sums."""
+    q, feats, wk, bk, pmask, valid = ins
+    logits = q @ (feats @ wk + bk).T / math.sqrt(D)
+    logits = torch.where(valid[None] > 0, logits, torch.full_like(logits, -9e15))
+    probs = torch.exp(logits - m) / s
+    c = (probs * g).sum(1, keepdim=True)
+    dlog = pmask[:, None] * probs * (g - c) / math.sqrt(D)
+    return (dlog.T @ q).abs().sum(0).max().item()
+
+
+def b2_case(ak, ins, g, mode):
+    """B2 on B1's residuals against its plain version; returns the max abs
+    error over the four gradients."""
+    _, m, s = ak.attention_scores_fwd(*ins, mode=mode)
+    out = ak.attention_scores_bwd(*ins, m, s, g, mode=mode)
+    ref = ak.attention_scores_bwd_plain(*ins, m, s, g, mode=mode)
+    torch.cuda.synchronize()
+    worst, msgs = 0.0, []
+    for name, a, b in zip(("dq", "dfeats", "dwk", "dbk"), out, ref):
+        if a.shape != b.shape or not torch.isfinite(a).all():
+            raise AssertionError(f"B2 {name}: shape {tuple(a.shape)} or non-finite")
+        err = (a - b).abs().max().item()
+        scale = dbk_scale(ins, m, s, g) if name == "dbk" else b.abs().max().item()
+        msgs.append(f"{name} {err:.2e}/{scale:.2e}")
+        if not err <= B2_TOL[mode] * scale:
+            raise AssertionError(f"B2 {name} off at n={ins[1].shape[0]} {mode}: "
+                                 f"{err} > {B2_TOL[mode]} * {scale}")
+        worst = max(worst, err)
+    return worst, out, " ".join(msgs)
+
+
+def phase_b2(ak, gen):
+    """B2 against its plain version; returns the max abs error at the main
+    path's shape and mode."""
+    main_err = None
+    for n in KERNEL_NS:
+        ins = b1_inputs(n, gen)
+        g = torch.randn(n, generator=gen, device="cuda")
+        for mode in ak.MODES:
+            err, _, msg = b2_case(ak, ins, g, mode)
+            log(f"B2 n={n} mode={mode}: max_abs_err={err:.3e} (err/scale: {msg})")
+            if n == KERNEL_NS[0] and mode == "bf16_split3":
+                main_err = err
+    # every ray invalid: P = 1/N, and the unmasked dlog gives invalid rays
+    # a nonzero dfeats, as the TPU kernel does
+    ins = list(b1_inputs(4096, gen))
+    ins[5] = torch.zeros_like(ins[5])
+    err, out, msg = b2_case(ak, ins, torch.randn(4096, generator=gen, device="cuda"),
+                            "f32")
+    log(f"B2 all-invalid n=4096 f32: max_abs_err={err:.3e} (err/scale: {msg}); "
+        f"max|dfeats| {out[1].abs().max().item():.3e}")
+    if not out[1].abs().max().item() > 0:
+        raise AssertionError("B2 all-invalid: dfeats should be nonzero (unmasked dlog)")
+    return main_err
+
+
 def random_scene_arrays(rng) -> dict:
     n = N_GAUSSIANS
     return {
@@ -179,9 +279,137 @@ def random_mask(rng) -> np.ndarray:
     return ((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0
 
 
-def profile_eval(run, unprofiled_ms: float) -> None:
+def train_cameras(rng):
+    """N_TRAIN_CAMERAS CameraInfos on a ring at radius 3.1 looking at the
+    origin, each with a random 800x800 RGBA image whose alpha is a random
+    ellipse (prepare_image_mask turns it into the mask)."""
+    from sixdgs_torch.scene.structures import CameraInfo
+
+    infos = []
+    for i in range(N_TRAIN_CAMERAS):
+        ang = 2 * math.pi * i / N_TRAIN_CAMERAS
+        pos = np.array([3 * math.cos(ang), 0.8, 3 * math.sin(ang)])
+        c2w = look_at_c2w(pos)
+        rgba = np.empty((IMAGE_HW, IMAGE_HW, 4), np.uint8)
+        rgba[..., :3] = rng.integers(0, 256, size=(IMAGE_HW, IMAGE_HW, 3))
+        rgba[..., 3] = np.where(random_mask(rng), 255, 0)
+        R = c2w[:3, :3].astype(np.float64)
+        infos.append(CameraInfo(uid=i, R=R, T=-R.T @ pos, FovY=0.9, FovX=0.9, image=rgba,
+                                image_path="", image_name=f"cam{i}", width=IMAGE_HW,
+                                height=IMAGE_HW))
+    return infos
+
+
+def run_trainer(trainer, n_steps: int):
+    """Run ``n_steps`` iterations with a callback after each: returns per-step
+    (aux, wall ms, peak device memory bytes), the first step's gradients and
+    the rays it used."""
+    steps, first = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_last = [time.perf_counter()]
+
+    def callback(it, aux, tr):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps.append((aux, 1e3 * (now - t_last[0]), torch.cuda.max_memory_allocated()))
+        if it == 0:
+            first["grads"] = {n: p.grad.detach().clone()
+                              for n, p in tr.id_module.named_parameters()}
+            first["rays"] = [x.clone() for x in tr.rays]
+        torch.cuda.reset_peak_memory_stats()
+        t_last[0] = time.perf_counter()
+
+    trainer.run(n_iterations=n_steps, validate_every=0, log_every=1, callback=callback)
+    return steps, first
+
+
+def phase_training(ak, scene, dino_model, id_module, rng):
+    """The training path at full width; returns ((B1 launches, B2
+    launches), per-step ms and peak GiB for fused and plain, the two
+    trainers)."""
+    from sixdgs_torch.pose.trainer import PoseTrainer
+    from sixdgs_torch.utils.config import PoseEstimationConfig
+
+    cfg = PoseEstimationConfig()
+    infos = train_cameras(rng)
+    t0 = time.perf_counter()
+    fused = PoseTrainer(dino_model, id_module, scene, infos, cfg, seed=SEED,
+                        fused_attention=True, device="cuda")
+    torch.cuda.synchronize()
+    log(f"trainer set-up (features of {len(infos)} cameras): "
+        f"{time.perf_counter() - t0:.2f} s; patches per camera "
+        f"{fused._feat_cache[1].sum(1).tolist()}")
+
+    ak.attention_scores_fused.launches = 0
+    ak.attention_scores_bwd.launches = 0
+    steps, first = run_trainer(fused, N_TRAIN_STEPS)
+    launches = (ak.attention_scores_fused.launches, ak.attention_scores_bwd.launches)
+    expected = cfg.gradient_accumulation_steps * N_TRAIN_STEPS
+    log(f"phase 4 training: B1 launches {launches[0]}, B2 launches {launches[1]} "
+        f"(expected {expected} each)")
+    if launches != (expected, expected):
+        raise AssertionError(f"training launched B1/B2 {launches}, expected {expected} each")
+    for it, (aux, ms, peak) in enumerate(steps):
+        log(f"  step {it}: loss {aux['loss']:.6e} score {aux['loss_score']:.6e} "
+            f"cam_up {aux['cam_up']:.4f} n_nan {aux['n_nan']} {ms:.1f} ms "
+            f"peak {peak / 2**30:.2f} GiB")
+        if not math.isfinite(aux["loss"]) or aux["n_nan"] != 0:
+            raise AssertionError(f"step {it}: loss {aux['loss']} n_nan {aux['n_nan']}")
+    if len(steps) != N_TRAIN_STEPS:
+        raise AssertionError(f"{len(steps)} steps logged, expected {N_TRAIN_STEPS}")
+
+    plain = PoseTrainer(dino_model, id_module, scene, infos, cfg, seed=SEED,
+                        fused_attention=False, device="cuda")
+    plain_steps, plain_first = run_trainer(plain, N_PLAIN_STEPS)
+    for a, b in zip(first["rays"], plain_first["rays"]):
+        if not torch.equal(a, b):
+            raise AssertionError("the twin trainer drew other rays from the same seed")
+    f_loss, p_loss = steps[0][0]["loss"], plain_steps[0][0]["loss"]
+    rel = abs(f_loss - p_loss) / abs(p_loss)
+    log(f"first step fused vs plain: loss {f_loss:.8e} vs {p_loss:.8e} (rel {rel:.2e})")
+    if not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"first-step loss differs by {rel} relative")
+    top = max(g.abs().max().item() for g in plain_first["grads"].values())
+    worst = 0.0
+    for name, g in plain_first["grads"].items():
+        err = (first["grads"][name] - g).abs().max().item()
+        scale = top if name in ZERO_GRAD_PARAMS else g.abs().max().item()
+        worst = max(worst, err / scale)
+        if not err <= TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"first-step gradient of {name}: {err} > "
+                                 f"{TRAIN_GRAD_TOL} * {scale}")
+    log(f"first step fused vs plain gradients: worst err / scale {worst:.2e} "
+        f"over {len(plain_first['grads'])} parameters")
+
+    val = fused.validate(N_TRAIN_STEPS - 1, max_images=2)
+    tr = val["train_imgs"]
+    log(f"validate (2 train images, target scores): t_err {tr['translation_error']:.4f} "
+        f"a_err {tr['angular_error']:.2f} recall {tr['recall']:.3f}")
+    if not math.isfinite(tr["translation_error"]):
+        raise AssertionError("validate returned a non-finite translation error")
+
+    # steady-state steps: skip the first (warm-up) and the ray renewals
+    renew = {i for i in range(N_TRAIN_STEPS) if i % cfg.renewal_every_n_iterations == 0}
+    timing = {
+        "fused_step_ms": statistics.median(ms for i, (_, ms, _) in enumerate(steps)
+                                           if i not in renew),
+        "plain_step_ms": statistics.median(ms for i, (_, ms, _) in enumerate(plain_steps)
+                                           if i not in renew),
+        "fused_peak_gib": max(p for i, (_, _, p) in enumerate(steps)
+                              if i not in renew) / 2**30,
+        "plain_peak_gib": max(p for i, (_, _, p) in enumerate(plain_steps)
+                              if i not in renew) / 2**30,
+    }
+    log("training per step (median of steady steps; peak of one step): "
+        + json.dumps(timing))
+    log("phase 4 training: ok")
+    return launches, timing, {"fused": fused, "plain": plain}
+
+
+def profile_run(label: str, run, unprofiled_ms: float) -> None:
     """Device time by kernel over one call of ``run`` (torch.profiler), and
-    the device's busy share of the unprofiled per-image time."""
+    the device's busy share of the unprofiled time of one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -189,10 +417,14 @@ def profile_eval(run, unprofiled_ms: float) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    # user-annotated ranges (Optimizer.step#...) span kernels counted in
+    # their own rows: leave them out of the busy time
+    rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA
+            and not getattr(r, "is_user_annotation", False)
+            and not r.key.startswith("Optimizer.")]
     rows.sort(key=lambda r: -r.self_device_time_total)
     busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
-    log(f"profile of one fused eval_image: {sum(r.count for r in rows)} kernels, device busy "
+    log(f"profile of one {label}: {sum(r.count for r in rows)} kernels, device busy "
         f"{busy_ms:.3f} ms = {100 * busy_ms / unprofiled_ms:.1f}% of {unprofiled_ms:.3f} ms")
     for r in rows[:15]:
         log(f"  {r.self_device_time_total / 1e3:8.3f} ms x{r.count:<4d} {r.key[:100]}")
@@ -219,15 +451,17 @@ def main() -> int:
     if torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("float32 matmuls must not use TF32")
 
-    # 1. build
+    # 1. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    secs = _build.build("attention_scores")
-    log(f"phase 1 build: attention_scores {secs:.2f} s "
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        secs = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
+    log(f"phase 1 build: {json.dumps(secs)} s "
         f"({time.perf_counter() - t0:.2f} s wall)")
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_abs_err = phase_kernels(ak, gen)
+    b2_max_abs_err = phase_b2(ak, gen)
     log("phase 2 kernels vs plain: ok")
 
     # 3. main path at full width
@@ -263,13 +497,16 @@ def main() -> int:
     torch.cuda.synchronize()
 
     ak.attention_scores_fused.launches = 0
+    ak.attention_scores_bwd.launches = 0
     fused = [eval_image(dino_model, id_module, images[i], masks[i], c2ws[i], rays,
                         fused_attention=True) for i in range(N_IMAGES)]
     torch.cuda.synchronize()
     launches = ak.attention_scores_fused.launches
-    log(f"phase 3 main path: B1 launches {launches}")
-    if launches != N_IMAGES:
-        raise AssertionError(f"B1 launched {launches} times, expected {N_IMAGES}")
+    log(f"phase 3 main path: B1 launches {launches}, B2 launches "
+        f"{ak.attention_scores_bwd.launches}")
+    if launches != N_IMAGES or ak.attention_scores_bwd.launches != 0:
+        raise AssertionError(f"serving launched B1 {launches} times (expected "
+                             f"{N_IMAGES}) and B2 {ak.attention_scores_bwd.launches} (0)")
 
     for i, out in enumerate(fused):
         c2w = out["c2w"]
@@ -300,7 +537,11 @@ def main() -> int:
         raise AssertionError(f"target-score solve missed the camera by {t_err}")
     log("phase 3 main path: ok")
 
-    # 4. timing
+    # 4. training path at full width
+    (train_b1, train_b2), train_timing, trainers = phase_training(
+        ak, scene, dino_model, id_module, rng)
+
+    # 5. timing
     n = KERNEL_NS[0]
     ins = b1_inputs(n, gen)
     ms = cuda_ms(lambda: ak.attention_scores_fused(*ins))
@@ -323,6 +564,28 @@ def main() -> int:
             lambda: ak.attention_scores_plain(*big, mode="bf16_split3"), reps=10)
     log("B1 times ms: " + json.dumps(times))
 
+    g = torch.randn(n, generator=gen, device="cuda")
+    _, m, s = ak.attention_scores_fwd(*ins)
+    b2_ms = cuda_ms(lambda: ak.attention_scores_bwd(*ins, m, s, g))
+    b2_plain_ms = cuda_ms(lambda: ak.attention_scores_bwd_plain(*ins, m, s, g))
+    b2_bound_ms, b2_bound_by = b2_bound(n, "bf16_split3")
+    log(f"B2 n={n}: needed {b2_flops(n) / 1e9:.2f} GFLOP, executed "
+        f"{2 * (4 * n * D * D + 4 * P * n * D) / 1e9:.2f} GFLOP; split3 kernel at "
+        f"{b2_flops(n) / b2_ms / 1e9:.2f} TFLOP/s needed, {b2_bound_ms / b2_ms:.3f} "
+        f"of its bound")
+    times = {}
+    for nn in KERNEL_NS:
+        big = ins if nn == n else b1_inputs(nn, gen)
+        gg = torch.randn(nn, generator=gen, device="cuda")
+        for mode in ak.MODES:
+            _, mm, ss = ak.attention_scores_fwd(*big, mode=mode)
+            times[f"n={nn} {mode}"] = cuda_ms(
+                lambda: ak.attention_scores_bwd(*big, mm, ss, gg, mode=mode), reps=10)
+            times[f"n={nn} {mode} bound"] = b2_bound(nn, mode)[0]
+        times[f"n={nn} plain"] = cuda_ms(
+            lambda: ak.attention_scores_bwd_plain(*big, mm, ss, gg), reps=10)
+    log("B2 times ms: " + json.dumps(times))
+
     per_image = {}
     for label, flag in (("fused", True), ("plain", False)):
         walls = []
@@ -336,17 +599,28 @@ def main() -> int:
                 walls.append(1e3 * (time.perf_counter() - t0))
         per_image[label] = statistics.median(walls)
     log(f"eval_image ms per image (median of {3 * N_IMAGES}): " + json.dumps(per_image))
-    profile_eval(lambda: eval_image(dino_model, id_module, images[0], masks[0], c2ws[0],
-                                    rays, fused_attention=True), per_image["fused"])
+    profile_run("fused eval_image",
+                lambda: eval_image(dino_model, id_module, images[0], masks[0], c2ws[0],
+                                   rays, fused_attention=True), per_image["fused"])
+    # one more step of each trainer, after the counted runs
+    for label in ("fused", "plain"):
+        trainer = trainers[label]
+        nxt = trainer.optimizer.state[next(trainer.id_module.parameters())]["step"]
+        profile_run(f"{label} training step",
+                    lambda: trainer.run(n_iterations=nxt + 1, start_iteration=nxt,
+                                        validate_every=0),
+                    train_timing[f"{label}_step_ms"])
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
-    record = {
+    records = [{
         "name": "B1 attention_scores_fused (_fwd_kernel_train; 3 CUDA kernels per launch)",
         "route": "cuda",
         "source": "sixdgs_torch/csrc/attention_scores.cu",
         "replaces": "sixdgs_tpu/ops/attention_kernel.py:116",
-        "launches": launches,
+        # this slice's path (training); the serving path's count beside it
+        "launches": train_b1,
+        "launches_by_path": {"serving": launches, "training": train_b1},
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -354,9 +628,24 @@ def main() -> int:
         "bound_by": bound_by,
         # no single PyTorch call computes the masked softmax column sums
         "library_ms": None,
-    }
+    }, {
+        "name": "B2 attention_scores_bwd (_bwd_kernel; 8 CUDA kernels per launch)",
+        "route": "cuda",
+        "source": "sixdgs_torch/csrc/attention_scores_bwd.cu",
+        "replaces": "sixdgs_tpu/ops/attention_kernel.py:136",
+        "launches": train_b2,
+        "launches_by_path": {"serving": 0, "training": train_b2},
+        "max_abs_err": b2_max_abs_err,
+        "ms": b2_ms,
+        "plain_ms": b2_plain_ms,
+        "bound_ms": b2_bound_ms,
+        "bound_by": b2_bound_by,
+        # no single PyTorch call computes the softmax-column-sum VJP
+        "library_ms": None,
+    }]
+    log("training step: " + json.dumps(train_timing))
     log(gpu_line())
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

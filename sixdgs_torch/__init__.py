@@ -8,11 +8,14 @@ kernel written by hand for sm_90a (``csrc/``), built with nvcc at first use.
 
 Layout (ported so far):
   ops/      SH, quaternions, sym-eig 3x3, LS lines, fused attention scores
+            (forward B1 and backward B2)
   scene/    GaussianScene, byte-compatible PLY codec, structures
   rays/     quadricell surface sampling, PCA normals, ray engine
   pose/     DINOv2 ViT-S/14, ray MLP, attention, camera-up head, loss,
-            solver, evaluation
-  weights   the JAX package's param dicts -> the port's modules
+            solver, evaluation, id-module trainer (Adafactor),
+            camera-up augmentations
+  utils/    pose config, metrics writer
+  weights   the JAX package's param dicts <-> the port's modules
 
 Entry points run on "cuda" unless the caller passes ``device="cpu"``.
 Importing the package needs neither nvcc nor a GPU.

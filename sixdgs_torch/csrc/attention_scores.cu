@@ -30,171 +30,19 @@
 // the TPU kernel's second pass does).
 // This first version stages tiles in shared memory and runs plain f32 FMA on
 // the CUDA cores with a 4x12 / 4x8 register tile per thread; tensor cores
-// (wgmma) and TMA are left for a later version.
+// (wgmma) and TMA are left for a later version. The tile code (block_logits)
+// is in attention_tiles.cuh, shared with the backward kernel (B2).
 //
 // Precision: "f32" and "bf16_split3" both run as plain f32 FMA here (split3
 // exists to get f32-class accuracy out of a bf16 MXU). "bf16" rounds every
 // matmul operand (feats, Wk, q and K) to bf16 with round-to-nearest-even and
 // accumulates in f32, as the TPU kernel's bf16 mode does. No TF32 anywhere.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <math.h>
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int P = 256;        // image patches (16 x 16 DINOv2 grid)
-constexpr int BN = 32;        // rays per CTA
-constexpr int KT = 16;        // depth of one staged operand tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int KS = BN + 1;    // padded row stride of K^T in shared memory
-constexpr float NEG = -9e15f; // the TPU kernel's mask value (not -inf)
-
-static_assert(P == 64 * 4, "step B maps 64 patch groups of 4 patches");
-static_assert(BN == 4 * 8, "step B maps 4 ray groups of 8 rays");
-static_assert(THREADS == 256, "thread mappings assume 256 threads");
-
-template <bool BF16>
-__device__ __forceinline__ float rnd(float x) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  } else {
-    return x;
-  }
-}
-
-__host__ __device__ constexpr int cmax(int a, int b) { return a > b ? a : b; }
-
-template <int D>
-__host__ __device__ constexpr int region1_floats() {
-  // feats block [BN][D], then K^T [D][KS], then column partials [64][BN]
-  return cmax(cmax(BN * D, D * KS), 64 * BN);
-}
-
-template <int D>
-__host__ __device__ constexpr int region2_floats() {
-  // one staged tile: Wk rows [KT][D] or q^T rows [KT][P]
-  return KT * cmax(D, P);
-}
-
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (region1_floats<D>() + region2_floats<D>());
-}
-
-// Logits of the CTA's BN rays against all P patches, left in registers:
-// thread (pg = tid / 4, rg = tid % 4) holds patches pg*4 + i (i < 4) and
-// rays rg*8 + j (j < 8). Invalid in-range rays are already set to NEG.
-template <int D, bool BF16>
-__device__ __forceinline__ void block_logits(
-    const float* __restrict__ q_t, const float* __restrict__ feats,
-    const float* __restrict__ wk, const float* __restrict__ bk,
-    const float* __restrict__ valid, int n, int r0, float sqrt_d,
-    float* r1, float* r2, float (&acc)[4][8]) {
-  constexpr int CPT = D / 32;  // K columns per thread in step A
-  const int tid = threadIdx.x;
-
-  // stage the feats block [BN][D]; rows past N are zero
-  for (int idx = tid; idx < BN * D / 4; idx += THREADS) {
-    const int r = idx / (D / 4);
-    const int c4 = idx % (D / 4);
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < n) {
-      v = reinterpret_cast<const float4*>(feats + (size_t)(r0 + r) * D)[c4];
-    }
-    v.x = rnd<BF16>(v.x);
-    v.y = rnd<BF16>(v.y);
-    v.z = rnd<BF16>(v.z);
-    v.w = rnd<BF16>(v.w);
-    reinterpret_cast<float4*>(r1)[idx] = v;
-  }
-
-  // step A: K block [BN][D] = feats block @ Wk + bk. Thread (ty, tx) owns
-  // rays ty*4 + i and columns tx + 32c.
-  const int ty = tid / 32;
-  const int tx = tid % 32;
-  float kacc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) kacc[i][c] = 0.f;
-  }
-  for (int k0 = 0; k0 < D; k0 += KT) {
-    for (int idx = tid; idx < KT * D / 4; idx += THREADS) {
-      float4 v = reinterpret_cast<const float4*>(wk + (size_t)k0 * D)[idx];
-      v.x = rnd<BF16>(v.x);
-      v.y = rnd<BF16>(v.y);
-      v.z = rnd<BF16>(v.z);
-      v.w = rnd<BF16>(v.w);
-      reinterpret_cast<float4*>(r2)[idx] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      float a[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = r1[(ty * 4 + i) * D + k0 + kk];
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float w = r2[kk * D + tx + 32 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) kacc[i][c] = fmaf(a[i], w, kacc[i][c]);
-      }
-    }
-    __syncthreads();
-  }
-  // K^T [D][KS] over the feats block (every read of it finished above)
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-    const float b = bk[tx + 32 * c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      r1[(tx + 32 * c) * KS + ty * 4 + i] = rnd<BF16>(kacc[i][c] + b);
-    }
-  }
-
-  // step B: logits [P][BN] = q K^T, q^T staged [KT][P] per tile
-  const int pg = tid / 4;
-  const int rg = tid % 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-  }
-  for (int k0 = 0; k0 < D; k0 += KT) {
-    for (int idx = tid; idx < KT * P / 4; idx += THREADS) {
-      float4 v = reinterpret_cast<const float4*>(q_t + (size_t)k0 * P)[idx];
-      v.x = rnd<BF16>(v.x);
-      v.y = rnd<BF16>(v.y);
-      v.z = rnd<BF16>(v.z);
-      v.w = rnd<BF16>(v.w);
-      reinterpret_cast<float4*>(r2)[idx] = v;
-    }
-    __syncthreads();  // also orders the K^T writes before the first read
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      const float4 qa = reinterpret_cast<const float4*>(r2 + kk * P)[pg];
-      const float qv[4] = {qa.x, qa.y, qa.z, qa.w};
-      float kb[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kb[j] = r1[(k0 + kk) * KS + rg * 8 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(qv[i], kb[j], acc[i][j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int r = r0 + rg * 8 + j;
-    const bool ok = r < n && valid[r] > 0.f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[i][j] = ok ? acc[i][j] / sqrt_d : NEG;
-  }
-}
+using namespace attn;
 
 template <int D, bool BF16>
 __global__ void __launch_bounds__(THREADS)

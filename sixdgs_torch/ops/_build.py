@@ -1,8 +1,9 @@
 """Build the port's CUDA sources with nvcc and load them with ctypes.
 
 ``csrc/<name>.cu`` becomes ``build/torch_kernels/<name>-<hash>.so`` at
-first use, keyed on a hash of the source and the compiler flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. The
+first use, keyed on a hash of the source, the shared headers
+(``csrc/*.cuh``) and the compiler flags, so an edited source or header is
+rebuilt and an unchanged one is loaded as it is. The
 sources include no PyTorch header and export a plain C interface, which
 keeps a build to seconds. Nothing here runs at import time: this module is
 imported on machines that have neither nvcc nor a GPU.
@@ -36,6 +37,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

@@ -1,4 +1,4 @@
-"""Fused patches x rays attention scores (B1), forward.
+"""Fused patches x rays attention scores: forward (B1) and backward (B2).
 
 Port of sixdgs_tpu/ops/attention_kernel.py. For q [P, d], ray features
 [N, d] and the k-projection (Wk [d, d] as (in, out), bk [d]):
@@ -7,34 +7,46 @@ Port of sixdgs_tpu/ops/attention_kernel.py. For q [P, d], ray features
     logits   = q K^T / sqrt(d), invalid rays -> NEG = -9e15
     score_j  = sum_p patch_mask_p softmax_row_p(logits)_j
 
-On a CUDA tensor ``attention_scores_fused`` launches the hand-written
-kernel in ``csrc/attention_scores.cu``, which replaces the TPU kernel
+``attention_scores_fused`` is differentiable in q, ray_feats, Wk and bk: a
+``torch.autograd.Function`` whose forward is B1 and whose backward is B2,
+so neither direction writes the [P, N] logits to device memory.
+
+On a CUDA tensor the forward launches the hand-written kernel in
+``csrc/attention_scores.cu``, which replaces the TPU kernel
 ``_fwd_kernel_train`` (launched by ``_fused_fwd_call_train``). The TPU
 kernel's sequential two-pass grid becomes split-N on the card: per-CTA
 partial (max, sum-exp), a combine, and an emit pass that recomputes K and
-the logits, so the [P, N] logits never reach device memory. One counted
-launch is three CUDA kernels (b1_stats, b1_combine, b1_emit).
+the logits. One counted launch is three CUDA kernels (b1_stats, b1_combine,
+b1_emit). Bound: the function needs 2 (N d^2 + P N d) flops (16.1 GFLOP at
+N=32768, d=384) against ~2 N d * 4 bytes, so it is bound by compute on the
+card: 0.240 ms at the 67 TFLOP/s f32 peak. The kernel executes twice those
+flops, because its second pass recomputes K and the logits, as the TPU
+kernel's does.
 
-Bound: the function needs 2 (N d^2 + P N d) flops (16.1 GFLOP at N=32768,
-d=384) against ~2 N d * 4 bytes, so it is bound by compute on the card:
-0.240 ms at the 67 TFLOP/s f32 peak. The kernel executes twice those flops
-(bench.py's 2 (2 N d^2 + 2 P N d)), because its second pass recomputes K
-and the logits, as the TPU kernel's does.
+The backward launches ``csrc/attention_scores_bwd.cu``, which replaces the
+TPU kernel ``_bwd_kernel`` (launched by ``_fused_scores_bwd``): c_p =
+sum_j P_pj g_j, then dlog = pmask P (g - c) / sqrt(d), dk = dlog^T q,
+dfeats = dk Wk^T, dq = dlog K, dWk = feats^T dk, dbk = sum_j dk_j, with
+every cross-CTA sum taken through partials in a fixed order. One counted
+launch is eight CUDA kernels. Bound: 2 (3 N d^2 + 3 P N d) flops, 48.3
+GFLOP at N=32768, 0.721 ms at the f32 peak. As in the TPU kernel, dlog is
+not masked by ray validity: with every ray invalid, invalid rays get a
+nonzero dfeats where autodiff of the masked formula gives zero.
 
-On a CPU tensor it runs ``attention_scores_plain``, the same arithmetic in
-plain PyTorch. A CUDA tensor never falls back to the plain version.
+On a CPU tensor each direction runs its plain PyTorch version
+(``attention_scores_plain``, ``attention_scores_bwd_plain``), the same
+arithmetic. A CUDA tensor never falls back to the plain version.
 
 Precision ``mode``: "f32" and "bf16_split3" both compute in plain f32 (the
 TPU's split3 exists to reach f32-class accuracy on a bf16 MXU); "bf16"
-rounds every matmul operand to bf16 and accumulates in f32.
-
-Forward only: the backward kernel (B2) and its autograd.Function come with
-the pose trainer, so an input that requires grad is refused.
+rounds every matmul operand to bf16 at the TPU kernel's _dot points and
+accumulates in f32.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Tuple
 
@@ -71,6 +83,30 @@ def attention_scores_plain(q, ray_feats, wk, bk, pmask, valid,
     return scores, m, s
 
 
+def attention_scores_bwd_plain(q, ray_feats, wk, bk, pmask, valid, m, s, g,
+                               mode: str = "bf16_split3"):
+    """The backward kernel's function in plain PyTorch: (dq [P, d],
+    dfeats [N, d], dwk [d, d], dbk [d]) for the score cotangent ``g`` [N],
+    with m, s the forward's [P, 1] (or [P]) residuals. Like the TPU kernel
+    (and unlike autodiff of the masked formula), dlog is not masked by
+    ``valid``."""
+    P, d = q.shape
+    inv_sqrt_d = 1.0 / math.sqrt(d)
+    k = _dot(ray_feats, wk, mode) + bk
+    logits = _dot(q, k.T, mode) / math.sqrt(d)
+    logits = torch.where(valid[None, :] > 0.0, logits,
+                         torch.full_like(logits, NEG))
+    probs = torch.exp(logits - m.reshape(P, 1)) / s.reshape(P, 1)
+    c = torch.sum(probs * g[None, :], dim=1, keepdim=True)
+    dlog = pmask[:, None] * probs * (g[None, :] - c) * inv_sqrt_d
+    dk = _dot(dlog.T, q, mode)
+    dfeats = _dot(dk, wk.T, mode)
+    dq = _dot(dlog, k, mode)
+    dwk = _dot(ray_feats.T, dk, mode)
+    dbk = torch.sum(dk, dim=0)
+    return dq, dfeats, dwk, dbk
+
+
 def _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid):
     P, d = q.shape
     if P != N_PATCHES or d != KERNEL_WIDTH:
@@ -93,86 +129,161 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-_lib = None
+_SIGNATURES = {
+    # name -> {C function: (restype, argtypes)}
+    "attention_scores": {
+        "b1_attention_scores_fwd": (ctypes.c_int, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                                    + [ctypes.c_float, ctypes.c_void_p]),
+        "b1_rays_per_block": (ctypes.c_int, []),
+    },
+    "attention_scores_bwd": {
+        "b2_attention_scores_bwd": (ctypes.c_int, [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4
+                                    + [ctypes.c_float, ctypes.c_void_p]),
+        "b2_c_blocks": (ctypes.c_int, [ctypes.c_int]),
+        "b2_grad_ctas": (ctypes.c_int, [ctypes.c_int]),
+        "b2_dwk_splits": (ctypes.c_int, []),
+    },
+}
+_libs = {}
 
 
-def _library() -> ctypes.CDLL:
-    """csrc/attention_scores.cu, built and loaded at first use, with its C
-    signatures set once."""
-    global _lib
-    if _lib is None:
+def _library(name: str) -> ctypes.CDLL:
+    """csrc/<name>.cu, built and loaded at first use, with its C signatures
+    set once."""
+    if name not in _libs:
         from sixdgs_torch.ops._build import library
 
-        lib = library("attention_scores")
-        lib.b1_attention_scores_fwd.restype = ctypes.c_int
-        lib.b1_attention_scores_fwd.argtypes = (
-            [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.b1_rays_per_block.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        lib = library(name)
+        for fn, (restype, argtypes) in _SIGNATURES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _libs[name] = lib
+    return _libs[name]
+
+
+def _launch(fn, *args) -> None:
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
 
 
 def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
     _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid)
-    lib = _library()
+    lib = _library("attention_scores")
     P, d = q.shape
     N = ray_feats.shape[0]
     nb = -(-N // lib.b1_rays_per_block())
-    dev = q.device
+    new = functools.partial(torch.empty, dtype=torch.float32, device=q.device)
     ins = [_aligned(t) for t in (q.T, ray_feats, wk, bk, pmask, valid)]
-    scores = torch.empty(N, dtype=torch.float32, device=dev)
-    m = torch.empty(P, 1, dtype=torch.float32, device=dev)
-    s = torch.empty(P, 1, dtype=torch.float32, device=dev)
-    m_part = torch.empty(P, nb, dtype=torch.float32, device=dev)
-    s_part = torch.empty(P, nb, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.b1_attention_scores_fwd(
-            *[t.data_ptr() for t in ins], scores.data_ptr(), m.data_ptr(),
-            s.data_ptr(), m_part.data_ptr(), s_part.data_ptr(),
-            N, d, P, int(mode == "bf16"), math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f"attention-score kernel launch failed: CUDA error {err}")
+    scores, m, s = new(N), new(P, 1), new(P, 1)
+    _launch(lib.b1_attention_scores_fwd, *ins, scores, m, s, new(P, nb), new(P, nb),
+            N, d, P, int(mode == "bf16"), math.sqrt(d))
     attention_scores_fused.launches += 1
     return scores, m, s
 
 
-def attention_scores_fwd(q, ray_feats, wk, bk, patch_mask, ray_valid,
-                         mode: str = "bf16_split3"):
-    """(scores [N], m [P, 1], s [P, 1]): the kernel on CUDA tensors, the
-    plain version on CPU tensors. m and s are the residuals the backward
-    kernel reads."""
+def _kernel_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode):
+    _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid)
+    lib = _library("attention_scores_bwd")
+    P, d = q.shape
+    N = ray_feats.shape[0]
+    n_ctas = lib.b2_grad_ctas(N)
+    new = functools.partial(torch.empty, dtype=torch.float32, device=q.device)
+    ins = [_aligned(t) for t in (q.T, q, ray_feats, wk, wk.T, bk, pmask, valid,
+                                 m.reshape(P), s.reshape(P), g.reshape(N))]
+    dfeats, dq, dwk, dbk = new(N, d), new(P, d), new(d, d), new(d)
+    scratch = (new(P, lib.b2_c_blocks(N)), new(P), new(n_ctas, P, d), new(n_ctas, d),
+               new(lib.b2_dwk_splits(), d, d))
+    _launch(lib.b2_attention_scores_bwd, *ins, dfeats, dq, dwk, dbk, *scratch,
+            N, d, P, int(mode == "bf16"), math.sqrt(d))
+    attention_scores_bwd.launches += 1
+    return dq, dfeats, dwk, dbk
+
+
+def _masks(q, ray_feats, patch_mask, ray_valid):
+    P, N = q.shape[0], ray_feats.shape[0]
+    return (patch_mask.to(torch.float32).reshape(P),
+            ray_valid.to(torch.float32).reshape(N))
+
+
+def _check_mode_and_device(q, mode):
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, ray_feats, wk, bk)):
-        raise RuntimeError("attention_scores_fused is forward only; run it "
-                           "under torch.no_grad()")
-    P, N = q.shape[0], ray_feats.shape[0]
-    pmask = patch_mask.to(torch.float32).reshape(P)
-    valid = ray_valid.to(torch.float32).reshape(N)
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no attention-score path for device {q.device}")
+
+
+def attention_scores_fwd(q, ray_feats, wk, bk, patch_mask, ray_valid,
+                         mode: str = "bf16_split3"):
+    """(scores [N], m [P, 1], s [P, 1]): the forward kernel on CUDA
+    tensors, the plain version on CPU tensors. m and s are the residuals the
+    backward reads. Not differentiable itself: ``attention_scores_fused``
+    is."""
+    _check_mode_and_device(q, mode)
+    pmask, valid = _masks(q, ray_feats, patch_mask, ray_valid)
     if q.device.type == "cuda":
         return _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode)
-    if q.device.type != "cpu":
-        raise ValueError(f"no attention-score path for device {q.device}")
     f32 = [t.to(torch.float32) for t in (q, ray_feats, wk, bk)]
     return attention_scores_plain(*f32, pmask, valid, mode)
 
 
+def attention_scores_bwd(q, ray_feats, wk, bk, patch_mask, ray_valid, m, s, g,
+                         mode: str = "bf16_split3"):
+    """(dq, dfeats, dwk, dbk) for the score cotangent ``g`` [N]: the
+    backward kernel on CUDA tensors, the plain version on CPU tensors.
+    ``m``, ``s`` are the residuals of ``attention_scores_fwd``."""
+    _check_mode_and_device(q, mode)
+    pmask, valid = _masks(q, ray_feats, patch_mask, ray_valid)
+    if q.device.type == "cuda":
+        return _kernel_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode)
+    f32 = [t.to(torch.float32) for t in (q, ray_feats, wk, bk)]
+    return attention_scores_bwd_plain(*f32, pmask, valid, m, s,
+                                      g.to(torch.float32), mode)
+
+
+# launches on CUDA tensors; each is eight CUDA kernels (b2_c, b2_row_sums,
+# b2_grad, b2_dwk, three b2_sum_parts, b2_dfeats)
+attention_scores_bwd.launches = 0
+
+
+class _FusedScores(torch.autograd.Function):
+    """B1 forward, B2 backward (the TPU package's custom VJP). Saves the
+    same residuals as the TPU kernel: the inputs and the per-patch m, s."""
+
+    @staticmethod
+    def forward(ctx, q, ray_feats, wk, bk, pmask, valid, mode):
+        scores, m, s = attention_scores_fwd(q, ray_feats, wk, bk, pmask, valid, mode)
+        ctx.save_for_backward(q, ray_feats, wk, bk, pmask, valid, m, s)
+        ctx.mode = mode
+        return scores
+
+    @staticmethod
+    def backward(ctx, g):
+        q, ray_feats, wk, bk, pmask, valid, m, s = ctx.saved_tensors
+        grads = attention_scores_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g,
+                                     ctx.mode)
+        # pmask/valid are data masks, not differentiable inputs
+        return (*(gr.to(t.dtype) for gr, t in zip(grads, (q, ray_feats, wk, bk))),
+                None, None, None)
+
+
 def attention_scores_fused(q, ray_feats, wk, bk, patch_mask, ray_valid,
                            mode: str = "bf16_split3") -> torch.Tensor:
-    """Per-ray scores [N]; padded rays get ~0.
+    """Per-ray scores [N]; padded rays get ~0. Differentiable in q,
+    ray_feats, wk and bk (backward kernel B2 on CUDA tensors).
 
     Args:
         q: [P, d] projected image-patch queries.
-        ray_feats: [N, d] ray features (any N: the kernel masks the tail).
+        ray_feats: [N, d] ray features (any N: the kernels mask the tail).
         wk/bk: k-projection weights [d, d] (in, out) and [d].
         patch_mask: [P] bool/float mask of image patches.
         ray_valid: [N] bool/float validity of rays.
         mode: "f32" | "bf16" | "bf16_split3" (default).
     """
-    return attention_scores_fwd(q, ray_feats, wk, bk, patch_mask, ray_valid,
-                                mode)[0]
+    pmask, valid = _masks(q, ray_feats, patch_mask, ray_valid)
+    return _FusedScores.apply(q, ray_feats, wk, bk, pmask, valid, mode)
 
 
 # launches on CUDA tensors; each is three CUDA kernels (stats, combine, emit)
@@ -182,7 +293,9 @@ attention_scores_fused.launches = 0
 def fused_ray_scores(id_module, img_feats_pe, ray_feats, patch_mask, ray_valid,
                      mode: str = "bf16_split3") -> torch.Tensor:
     """Drop-in for the plain scorer in id_module.score_image: applies the
-    q-projection of ``id_module.attention`` then the fused kernel."""
+    q-projection of ``id_module.attention`` then the fused kernels. Its
+    gradients reach the q-projection through dq, and Wk through the
+    transposed view of ``attention.k.weight``."""
     attention = id_module.attention
     q = attention.q(img_feats_pe)
     return attention_scores_fused(q, ray_feats, attention.k.weight.T,

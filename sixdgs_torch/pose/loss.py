@@ -77,3 +77,10 @@ def distance_score_loss(
     n_valid = torch.clamp_min(torch.sum(rays_valid.to(diff.dtype)), 1.0)
     loss = torch.sum(torch.where(rays_valid, diff, 0.0)) / n_valid
     return loss, target
+
+
+def cam_up_loss(model_up: torch.Tensor, cam_up: torch.Tensor) -> torch.Tensor:
+    """-0.5 cos_sim + 0.5 (pose_estimation/train.py:168-171)."""
+    mu = model_up / torch.clamp_min(torch.linalg.norm(model_up), 1e-12)
+    cu = cam_up / torch.clamp_min(torch.linalg.norm(cam_up), 1e-12)
+    return -0.5 * torch.sum(mu * cu) + 0.5

@@ -95,3 +95,32 @@ def id_module_from_numpy(params: Dict, device="cuda") -> IdModule:
     _dense(cam_up.mlp1, cu["mlp1"])
     _dense(cam_up.mlp2, cu["mlp2"])
     return IdModule(ray_mlp, attention, cam_up).to(device)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
+
+
+def _dense_np(lin: nn.Linear) -> Dict:
+    return {"w": _np(lin.weight).T.copy(), "b": _np(lin.bias)}
+
+
+def _conv_np(conv: nn.Conv2d) -> Dict:
+    return {"w": _np(conv.weight), "b": _np(conv.bias)}
+
+
+def id_module_to_numpy(module: IdModule) -> Dict:
+    """The inverse of ``id_module_from_numpy``: an IdModule as a
+    sixdgs_tpu.pose.modules.init_id_module param dict of numpy arrays
+    (dense weights [in, out], convolutions OIHW)."""
+    rm, att, cu = module.ray_mlp, module.attention, module.cam_up
+    return {
+        "ray_mlp": {name: _dense_np(getattr(rm, name)) for name in ("l1", "l2", "l3", "l4")},
+        "attention": {"q": _dense_np(att.q), "k": _dense_np(att.k)},
+        "cam_up": {
+            "conv1": [_conv_np(c) for c in cu.conv1],
+            "conv2": [_conv_np(c) for c in cu.conv2],
+            "mlp1": _dense_np(cu.mlp1),
+            "mlp2": _dense_np(cu.mlp2),
+        },
+    }

@@ -1,8 +1,9 @@
 """The port's fused attention scores (B1) against sixdgs_tpu's Pallas kernel.
 
-On the CPU the wrapper runs its plain version, held here against the JAX
+On the CPU the wrapper runs its plain versions, held here against the JAX
 kernel in interpret mode in all three precision modes (the tolerance of
-tests/test_attention_kernel.py). The CUDA kernel itself is held against the
+tests/test_attention_kernel.py): the forward (B1) and, through
+jax.grad, the backward (B2). The CUDA kernel itself is held against the
 plain version in tests/test_torch_cuda_kernels.py, which imports no JAX so
 that it also runs on a machine with a card and no JAX.
 """
@@ -88,18 +89,73 @@ class TestPlainVersusPallas:
         np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-4)
 
 
+class TestPlainBackwardVersusPallas:
+    """B2's plain version, and autograd through the port's Function,
+    against jax.grad through the Pallas kernel (interpret mode) for all four
+    inputs, at the tolerance of tests/test_attention_kernel.py."""
+
+    @staticmethod
+    def _jax_grads(q, feats, wk, bk, pmask, valid, g, mode):
+        def loss(q, feats, wk, bk):
+            s = jak.attention_scores_fused(q, feats, wk, bk, jnp.asarray(pmask),
+                                           jnp.asarray(valid), block=256,
+                                           interpret=True, mode=mode)
+            return jnp.sum(s * jnp.asarray(g))
+
+        return [np.asarray(x) for x in jax.grad(loss, argnums=(0, 1, 2, 3))(
+            *map(jnp.asarray, (q, feats, wk, bk)))]
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "bf16_split3"])
+    @pytest.mark.parametrize("all_invalid", [False, True])
+    def test_gradients_match(self, mode, all_invalid):
+        q, feats, wk, bk, pmask, valid = _problem(seed=7)
+        if all_invalid:
+            # the TPU kernel does not mask dlog by validity: each patch
+            # spreads 1/N over the invalid rays, which get a nonzero dfeats
+            valid = np.zeros_like(valid)
+        g = np.random.default_rng(8).normal(size=feats.shape[0]).astype(np.float32)
+        ref = self._jax_grads(q, feats, wk, bk, pmask, valid, g, mode)
+
+        tq, tf, twk, tbk, tpm, tv, tg = map(_t, (q, feats, wk, bk, pmask, valid, g))
+        _, m, s = tak.attention_scores_fwd(tq, tf, twk, tbk, tpm, tv, mode=mode)
+        plain = tak.attention_scores_bwd_plain(tq, tf, twk, tbk, tpm, tv, m, s, tg,
+                                               mode=mode)
+        leaves = [x.clone().requires_grad_(True) for x in (tq, tf, twk, tbk)]
+        scores = tak.attention_scores_fused(*leaves, tpm, tv, mode=mode)
+        auto = torch.autograd.grad(torch.sum(scores * tg), leaves)
+        for name, r, a, b in zip(("dq", "dfeats", "dwk", "dbk"), ref, plain, auto):
+            # bf16: both round dlog and dk to bf16 at the same points, but
+            # from f32 sums taken in another order, so a value on a rounding
+            # boundary lands one bf16 step (2^-8) apart
+            atol = 2e-5 + (1e-3 * np.abs(r).max() if mode == "bf16" else 0.0)
+            np.testing.assert_allclose(a.numpy(), r, atol=atol, rtol=1e-3, err_msg=name)
+            np.testing.assert_allclose(b.numpy(), r, atol=atol, rtol=1e-3, err_msg=name)
+        if all_invalid:
+            assert np.abs(ref[1]).max() > 1e-3  # the pinned quirk
+        else:
+            np.testing.assert_array_equal(plain[1][-100:].numpy(), 0.0)
+
+
 class TestWrapperContract:
     def test_forward_only_and_modes(self):
+        """Gradients are accepted now (B2 is the backward); a mode the
+        kernels do not have still raises, on the forward and the backward."""
         q, feats, wk, bk, pmask, valid = map(_t, _problem(N=64, n_invalid=4))
         wk.requires_grad_(True)
-        with pytest.raises(RuntimeError, match="forward only"):
-            tak.attention_scores_fused(q, feats, wk, bk, pmask, valid)
-        with torch.no_grad():
-            tak.attention_scores_fused(q, feats, wk, bk, pmask, valid)
+        scores = tak.attention_scores_fused(q, feats, wk, bk, pmask, valid)
+        (dwk,) = torch.autograd.grad(scores.sum() + scores[0], [wk])
+        assert dwk.shape == wk.shape and torch.isfinite(dwk).all()
         with pytest.raises(ValueError, match="mode"):
-            tak.attention_scores_fused(q, feats, wk.detach(), bk, pmask, valid, mode="tf32")
+            tak.attention_scores_fused(q, feats, wk, bk, pmask, valid, mode="tf32")
+        _, m, s = tak.attention_scores_fwd(q, feats, wk.detach(), bk, pmask, valid)
+        with pytest.raises(ValueError, match="mode"):
+            tak.attention_scores_bwd(q, feats, wk.detach(), bk, pmask, valid, m, s,
+                                     torch.ones(64), mode="tf32")
 
     def test_cpu_path_does_not_count_launches(self):
-        before = tak.attention_scores_fused.launches
-        tak.attention_scores_fused(*map(_t, _problem(N=64, n_invalid=4)))
-        assert tak.attention_scores_fused.launches == before
+        before = (tak.attention_scores_fused.launches, tak.attention_scores_bwd.launches)
+        leaves = [x.requires_grad_(True) for x in map(_t, _problem(N=64, n_invalid=4)[:4])]
+        scores = tak.attention_scores_fused(*leaves, *map(_t, _problem(N=64, n_invalid=4)[4:]))
+        scores.sum().backward()
+        assert (tak.attention_scores_fused.launches,
+                tak.attention_scores_bwd.launches) == before
