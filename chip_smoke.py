@@ -6,15 +6,16 @@
 Run from the root of a checkout on a machine with one CUDA GPU and nvcc
 (``CUDA_HOME`` or /usr/local/cuda). Phases, each of which raises on failure:
 
-  1. build every CUDA kernel of the pose path from ``sixdgs_torch/csrc``
-     (one nvcc per source, all started together);
-  2. hold each kernel against its plain PyTorch version on the card at the
-     main paths' shapes (P=256, d=384, N in {32768, 131072}, all three
-     precision modes, a partial patch mask and a padded tail of invalid
-     rays): B1, the forward, and B2, the backward on B1's residuals and a
-     random score cotangent, plus B2 with every ray invalid;
-  3. the serving path at full width: a random 262,144-Gaussian SH-3 scene
-     written with save_ply and read back with load_ply, rays from the
+  1. build every CUDA kernel of the ported paths from ``sixdgs_torch/csrc``
+     (one nvcc per source, all started together): B1, B2, B5, B3;
+  2. hold each kernel against its plain PyTorch version on the card: B1
+     and B2 at the pose paths' shapes (P=256, d=384, N in {32768, 131072},
+     all three precision modes, a partial patch mask and a padded tail of
+     invalid rays, plus B2 with every ray invalid); B5 on a truncated
+     1232x816 layout and on all-empty tiles (equal); B3 on 64 tiles of
+     2,000-2,600 pairs each, opaque (tiles exit early) and translucent;
+  3. the pose serving path at full width: a random 262,144-Gaussian SH-3
+     scene written with save_ply and read back with load_ply, rays from the
      default config (32,768-ray budget, 1,000 ellipsoids, 20-NN normals),
      DINOv2-S/14 (12 blocks, 384 wide, 6 heads, the hub checkpoint's 37x37
      pos-embed grid) and the 384-wide id module with random seeded weights,
@@ -30,9 +31,18 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      finite; a twin trainer with fused_attention=False from the same seed
      must agree on the first step's loss and gradients; one validate();
      per-step time and peak memory, fused and plain;
-  5. timing with CUDA events (each kernel, its plain version, its bound)
-     and per-image eval_image time. B1's ``launches`` counts calls of its
-     wrapper, each three CUDA kernels; B2's, each eight.
+  5. the 3DGS render path at full width: render_eval(rasterizer="auto") of
+     the same scene through 16 cameras on the ring at 1232x816 (3,927
+     tiles). Per camera the aligned pair demand must fit nc and the binning
+     tiers must drop no coverage; launch counts are zeroed just before and
+     read just after (B5 and B3 each 16); one image is held against
+     rasterize_scan (the golden model, plain torch, the same projection);
+     B5 and B3 against their plain versions on that camera's layout;
+  6. timing with CUDA events (each kernel, its plain version, its bound),
+     per-image eval_image and render_eval time, and profiles of one image,
+     one training step and one render. B1's ``launches`` counts calls of
+     its wrapper, each three CUDA kernels; B2's, each eight; B5's and B3's,
+     one each.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -90,7 +100,37 @@ ZERO_GRAD_PARAMS = ("attention.k.bias", "ray_mlp.l4.bias")
 N_TRAIN_CAMERAS = 16
 N_TRAIN_STEPS = 12
 N_PLAIN_STEPS = 4
-KERNEL_SOURCES = ("attention_scores", "attention_scores_bwd")
+KERNEL_SOURCES = ("attention_scores", "attention_scores_bwd", "align_compact",
+                  "composite_fwd")
+# render path: the JAX package's Mip-NeRF 360 render size (bench.py), 77 x 51
+# = 3,927 tiles of 16 x 16, 16 cameras on the ring at radius 3.1, FoVs that
+# follow the aspect ratio, a white background
+RENDER_W, RENDER_H = 1232, 816
+N_RENDER_CAMERAS = 16
+RENDER_FOVX = 0.9
+RENDER_BG = (1.0, 1.0, 1.0)
+# B3 against its plain version (both f32 on the card): the kernel multiplies
+# the transmittance serially (with FMA contraction) where the plain version
+# takes a cumulative product per 128-pair chunk, so a pixel whose
+# T (1 - alpha) lands within rounding of T_EPS = 1e-4 can stop one pair
+# apart. A flip moves a channel by at most T_EPS alpha / (1 - alpha)
+# (|c| + |bg|) <= 9.9e-3 (|c| + |bg|); everywhere else the two agree to ~1e-6.
+# So: max abs error <= B3_MAX_ERR and at most a B3_FLIP_SHARE of the values
+# off by more than 1e-4 (a structural fault moves whole tiles by 0.1-1)
+B3_MAX_ERR = 5e-2
+B3_FLIP_SHARE = 1e-3
+# the rendered image against rasterize_scan (the golden model, every
+# gaussian on every pixel): the flips above, plus pixels just outside a
+# gaussian's tile rect (3 sigma, rounded out to tiles) where alpha is still
+# >= 1/255 (up to 3.33 sigma): the tile path drops those, each worth at most
+# exp(-4.5) opacity |c - bg| ~ 1.1e-2 |c - bg|. Both are rare; a structural
+# fault moves whole tiles
+RENDER_MAX_ERR = 5e-2
+RENDER_SHARE_OVER_1E3 = 1e-2
+# B3's operation count (composite_fwd.cu): 14 f32 operations per (pixel,
+# pair) evaluation up to the pixel's stop, 14 more per contributing pair
+B3_OPS_PER_EVAL = 14
+B3_OPS_PER_CONTRIB = 14
 
 
 def log(msg: str) -> None:
@@ -255,7 +295,9 @@ def random_scene_arrays(rng) -> dict:
         "features_dc": (rng.normal(size=(n, 1, 3)) * 0.5).astype(np.float32),
         "features_rest": (rng.normal(size=(n, 15, 3)) * 0.1).astype(np.float32),
         "opacity": rng.uniform(-2.0, 3.0, size=(n, 1)).astype(np.float32),
-        "scaling": rng.uniform(-4.5, -3.0, size=(n, 3)).astype(np.float32),
+        # 8-10 px radii at the render size: ~119 real pairs per tile, the
+        # JAX package's Mip-NeRF 360 bench figure
+        "scaling": rng.uniform(-5.8, -4.8, size=(n, 3)).astype(np.float32),
         "rotation": rng.normal(size=(n, 4)).astype(np.float32),
     }
 
@@ -407,6 +449,216 @@ def phase_training(ak, scene, dino_model, id_module, rng):
     return launches, timing, {"fused": fused, "plain": plain}
 
 
+def synthetic_records(counts, nx: int, ny: int, rng, opacity=(0.1, 0.99)):
+    """Aligned synthetic B3 inputs on the card: records [16, NC] with, per
+    tile, pair means around the tile, conics 0.05-0.3 and colors in [0, 1];
+    starts (KB-aligned) and counts int32."""
+    counts = np.asarray(counts, np.int64)
+    starts = np.concatenate([[0], np.cumsum(-(-counts // 128) * 128)])
+    rec = np.zeros((16, int(starts[-1]) + 128), np.float32)
+    t = np.repeat(np.arange(nx * ny), counts)
+    idx = np.concatenate([np.arange(a, a + c) for a, c in zip(starts[:-1], counts)])
+    n = idx.size
+    rec[0, idx] = (t % nx) * 16 + rng.uniform(-4, 20, n)
+    rec[1, idx] = (t // nx) * 16 + rng.uniform(-4, 20, n)
+    rec[2, idx] = rng.uniform(0.05, 0.3, n)
+    rec[3, idx] = rng.uniform(-0.05, 0.05, n)
+    rec[4, idx] = rng.uniform(0.05, 0.3, n)
+    rec[5:8, idx] = rng.uniform(0, 1, (3, n))
+    rec[8, idx] = rng.uniform(*opacity, n)
+    return (torch.tensor(rec, device="cuda"),
+            torch.tensor(starts, dtype=torch.int32, device="cuda"),
+            torch.tensor(counts, dtype=torch.int32, device="cuda"))
+
+
+def b3_check(label: str, got, want) -> float:
+    """B3 against its plain version (B3_MAX_ERR, B3_FLIP_SHARE); returns the
+    max abs error."""
+    err = (got - want).abs()
+    worst = err.max().item()
+    share = (err > 1e-4).float().mean().item()
+    log(f"B3 {label}: max_abs_err={worst:.3e}, share of values off by > 1e-4: "
+        f"{share:.2e} ({int((err > 1e-4).sum())} of {err.numel()})")
+    if not (torch.isfinite(got).all() and worst <= B3_MAX_ERR and share <= B3_FLIP_SHARE):
+        raise AssertionError(f"B3 {label} off its plain version: {worst}, {share}")
+    return worst
+
+
+def phase_raster_kernels(pt, rng):
+    """B5 and B3 against their plain versions on synthetic layouts: B5 on a
+    truncated full-size layout and on all-empty tiles, B3 on segments of
+    2,000-2,600 pairs per tile, opaque (tiles exit early) and translucent."""
+    n_tiles = 77 * 51
+    for label, counts, nc in (("truncated 1232x816", rng.poisson(300, n_tiles), 1 << 20),
+                              ("all-empty", np.zeros(64, np.int64), 1024)):
+        starts = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
+                              device="cuda")
+        gidx = torch.tensor(rng.integers(0, N_GAUSSIANS, nc), dtype=torch.int32,
+                            device="cuda")
+        starts_al, demand = pt._aligned_starts(starts, nc)
+        got = pt._align_compact(gidx, starts, starts_al, len(counts), N_GAUSSIANS)
+        want = pt.align_compact_plain(gidx, starts, starts_al, len(counts), N_GAUSSIANS)
+        torch.cuda.synchronize()
+        log(f"B5 {label}: nc {nc}, aligned demand {int(demand)}, equal to plain: "
+            f"{torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            raise AssertionError(f"B5 {label} differs from its plain version")
+    bg = torch.tensor([0.1, 0.5, 0.9], device="cuda")
+    for label, opacity in (("deep opaque", (0.3, 0.99)), ("deep translucent", (0.001, 0.02))):
+        rec, starts, counts = synthetic_records(rng.integers(2000, 2600, 64), 8, 8, rng,
+                                                opacity)
+        got = pt.pallas_composite_fwd(rec, starts, counts, 8, 8, bg)
+        want, (evals, contribs) = pt.composite_fwd_plain(rec, starts, counts, 8, 8, bg,
+                                                         return_work=True)
+        torch.cuda.synchronize()
+        log(f"B3 {label}: 64 tiles of {int(counts.min())}-{int(counts.max())} pairs, "
+            f"{evals / (64 * 256):.0f} evaluations per pixel")
+        b3_check(label, got, want)
+
+
+def render_cameras():
+    """N_RENDER_CAMERAS cameras on the ring of the training cameras (radius
+    3.1, looking at the origin), between their positions, at RENDER_W x
+    RENDER_H."""
+    from sixdgs_torch.scene.cameras import make_synthetic_camera
+
+    fovy = 2 * math.atan(math.tan(RENDER_FOVX / 2) * RENDER_H / RENDER_W)
+    cams = []
+    for i in range(N_RENDER_CAMERAS):
+        ang = 2 * math.pi * (i + 0.5) / N_RENDER_CAMERAS
+        pos = np.array([3 * math.cos(ang), 0.8, 3 * math.sin(ang)])
+        R = look_at_c2w(pos)[:3, :3].astype(np.float64)
+        cams.append(make_synthetic_camera(RENDER_W, RENDER_H, RENDER_FOVX, fovy, R,
+                                          -R.T @ pos, uid=i, name=f"render{i}"))
+    return cams
+
+
+def layout_of(scene, cam):
+    """(projection, compact layout, binning telemetry) of ``cam``: what
+    rasterize_pallas builds before B5, with no kernel launched."""
+    from sixdgs_torch.ops.rasterizer import pallas_tiles as pt
+    from sixdgs_torch.ops.rasterizer import tiles as tl
+    from sixdgs_torch.train import gs_trainer as gs
+
+    t_max, mid_k, t_max_mid, overflow_k, t_max_big = gs.DEFAULT_TIERS
+    proj = gs._project_params(scene.params(), scene.active, gs.camera_arrays(cam, "cuda"),
+                              cam.width, cam.height, scene.max_sh_degree)
+    lay = pt._compact_layout(proj, cam.width, cam.height, t_max, overflow_k, t_max_big,
+                             mid_k, t_max_mid, 0)
+    sat = tl.binning_saturation(lay.records[:, 0:2], proj.radii[lay.order].float(),
+                                (proj.radii > 0)[lay.order], lay.nx, lay.ny, pt.TILE,
+                                t_max, overflow_k, t_max_big, mid_k, t_max_mid)
+    return proj, lay, {k: int(v) for k, v in sat.items()}
+
+
+def phase_render(ak, scene):
+    """The render path at full width: 16 render_eval calls at 1232x816 on
+    the SH-3 scene, counted; one image against rasterize_scan; B5 and B3
+    against their plain versions at the scene's shapes. Returns what the
+    timing phase needs."""
+    from sixdgs_torch.ops.rasterizer import pallas_tiles as pt
+    from sixdgs_torch.ops.rasterizer.compositing import rasterize_scan
+    from sixdgs_torch.ops.rasterizer.projection import ProjectedGaussians
+    from sixdgs_torch.train.gs_trainer import render_eval
+
+    cams = render_cameras()
+    first = None
+    for i, cam in enumerate(cams):
+        proj, lay, sat = layout_of(scene, cam)
+        real, demand = int(lay.starts[-1]), int(lay.al_total)
+        log(f"camera {i}: {int((proj.radii > 0).sum())} visible; nc_real {real}, mean "
+            f"segment {real / lay.n_tiles:.1f} pairs per tile (max "
+            f"{int(lay.counts_k.max())}); nc_demand {demand} <= nc {lay.nc}: "
+            f"{demand <= lay.nc}; binning {json.dumps(sat)}")
+        if demand > lay.nc:
+            raise AssertionError(f"camera {i}: aligned demand {demand} > nc {lay.nc}")
+        if sat["dropped_main"] or sat["dropped_mid"] or sat["dropped_big"] or (
+                sat["overflow_spill"]):
+            raise AssertionError(f"camera {i}: the binning tiers dropped coverage")
+        if i == 0:
+            first = (proj, lay)
+        del proj, lay
+
+    bg = torch.tensor(RENDER_BG, device="cuda")
+    torch.cuda.synchronize()
+    counters = (pt._align_compact, pt.pallas_composite_fwd, ak.attention_scores_fused,
+                ak.attention_scores_bwd)
+    for c in counters:
+        c.launches = 0
+    imgs = [render_eval(scene, cam, bg, scene.max_sh_degree, rasterizer="auto")
+            for cam in cams]
+    torch.cuda.synchronize()
+    launches = [c.launches for c in counters]
+    log(f"phase 5 render: B5 launches {launches[0]}, B3 launches {launches[1]} "
+        f"(expected {N_RENDER_CAMERAS} each); B1 {launches[2]}, B2 {launches[3]}")
+    if launches != [N_RENDER_CAMERAS, N_RENDER_CAMERAS, 0, 0]:
+        raise AssertionError(f"render path launches {launches}")
+    for i, img in enumerate(imgs):
+        if img.shape != (3, RENDER_H, RENDER_W) or not torch.isfinite(img).all():
+            raise AssertionError(f"image {i}: shape {tuple(img.shape)} or non-finite")
+    covered = (imgs[0] - bg[:, None, None]).abs().amax(0) > 1e-3
+    log(f"image 0: mean {imgs[0].mean().item():.4f}, {covered.float().mean().item():.3f} "
+        f"of pixels differ from the background")
+
+    proj, lay = first
+    vis = proj.radii > 0
+    t0 = time.perf_counter()
+    # invisible gaussians (radius 0, opacity 0) sort last and add nothing
+    ref = rasterize_scan(ProjectedGaussians(*[f[vis] for f in proj]), RENDER_W, RENDER_H, bg)
+    torch.cuda.synchronize()
+    err = (imgs[0] - ref).abs()
+    render_err = err.max().item()
+    share = (err > 1e-3).float().mean().item()
+    log(f"image 0 vs rasterize_scan ({int(vis.sum())} gaussians, "
+        f"{time.perf_counter() - t0:.1f} s): max_abs_err={render_err:.3e}; values off by "
+        f"> 1e-3: {int((err > 1e-3).sum())} ({share:.2e}), by > 1e-4: "
+        f"{int((err > 1e-4).sum())} of {err.numel()}")
+    if not (render_err <= RENDER_MAX_ERR and share <= RENDER_SHARE_OVER_1E3):
+        raise AssertionError(f"render off the golden model: {render_err}, {share}")
+    del ref, err
+
+    # the kernels at the scene's shapes (camera 0)
+    gidx_al = pt._align_compact(lay.gidx_c, lay.starts, lay.starts_al, lay.n_tiles, lay.P)
+    want = pt.align_compact_plain(lay.gidx_c, lay.starts, lay.starts_al, lay.n_tiles, lay.P)
+    torch.cuda.synchronize()
+    b5_err = (gidx_al.long() - want.long()).abs().max().item()
+    log(f"B5 scene layout (nc {lay.nc}, {lay.n_tiles} tiles): equal to plain: "
+        f"{torch.equal(gidx_al, want)}")
+    if not torch.equal(gidx_al, want):
+        raise AssertionError("B5 differs from its plain version on the scene's layout")
+    records_t = pt._gather_records(lay.records, gidx_al)
+    out = pt.pallas_composite_fwd(records_t, lay.starts_al, lay.counts_k, lay.nx, lay.ny, bg)
+    want, work = pt.composite_fwd_plain(records_t, lay.starts_al, lay.counts_k, lay.nx,
+                                        lay.ny, bg, return_work=True)
+    b3_err = b3_check("scene records", out, want)
+    log(f"B3 scene work: {work[0]} evaluations ({work[0] / (lay.n_tiles * 256):.1f} per "
+        f"pixel), {work[1]} contributions")
+    log("phase 5 render: ok")
+    return {"cams": cams, "bg": bg, "lay": lay, "records_t": records_t, "work": work,
+            "launches": launches, "b3_err": b3_err, "b5_err": b5_err,
+            "render_err": render_err}
+
+
+def b3_bound(work, lay):
+    """(bound_ms, bound_by) of one B3 call on ``lay``: the operations these
+    inputs need (B3_OPS_PER_EVAL per evaluation up to each pixel's stop,
+    B3_OPS_PER_CONTRIB per contributing pair) at the f32 peak, against the
+    live record rows (9 floats per real pair), starts and counts read once
+    and the image written once."""
+    evals, contribs = work
+    ops = B3_OPS_PER_EVAL * evals + B3_OPS_PER_CONTRIB * contribs
+    nbytes = 4 * (9 * int(lay.counts_k.sum()) + 2 * lay.n_tiles + 3 + lay.n_tiles * 256 * 3)
+    t_ops, t_bytes = ops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def b5_bound(lay):
+    """(bound_ms, bound_by) of one B5 call: the real indices and both start
+    arrays read once, nc indices written (no arithmetic to speak of)."""
+    nbytes = 4 * (int(lay.starts[-1]) + 2 * (lay.n_tiles + 1) + lay.nc)
+    return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
+
+
 def profile_run(label: str, run, unprofiled_ms: float) -> None:
     """Device time by kernel over one call of ``run`` (torch.profiler), and
     the device's busy share of the unprofiled time of one call."""
@@ -437,6 +689,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from sixdgs_torch.ops import _build
     from sixdgs_torch.ops import attention_kernel as ak
+    from sixdgs_torch.ops.rasterizer import pallas_tiles as pt
     from sixdgs_torch.pose import dino
     from sixdgs_torch.pose.evaluate import eval_image
     from sixdgs_torch.pose.modules import init_id_module
@@ -462,6 +715,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_abs_err = phase_kernels(ak, gen)
     b2_max_abs_err = phase_b2(ak, gen)
+    phase_raster_kernels(pt, np.random.default_rng(SEED))
     log("phase 2 kernels vs plain: ok")
 
     # 3. main path at full width
@@ -541,7 +795,10 @@ def main() -> int:
     (train_b1, train_b2), train_timing, trainers = phase_training(
         ak, scene, dino_model, id_module, rng)
 
-    # 5. timing
+    # 5. render path at full width
+    render = phase_render(ak, scene)
+
+    # 6. timing
     n = KERNEL_NS[0]
     ins = b1_inputs(n, gen)
     ms = cuda_ms(lambda: ak.attention_scores_fused(*ins))
@@ -610,6 +867,35 @@ def main() -> int:
                     lambda: trainer.run(n_iterations=nxt + 1, start_iteration=nxt,
                                         validate_every=0),
                     train_timing[f"{label}_step_ms"])
+    from sixdgs_torch.train.gs_trainer import render_eval
+
+    cams, bg, lay = render["cams"], render["bg"], render["lay"]
+    render_eval(scene, cams[0], bg, scene.max_sh_degree)  # warm-up
+    walls = []
+    for cam in cams:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render_eval(scene, cam, bg, scene.max_sh_degree)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    render_ms = statistics.median(walls)
+    log(f"render_eval ms per {RENDER_W}x{RENDER_H} image (median of {len(walls)}): "
+        f"{render_ms:.3f} (min {min(walls):.3f}, max {max(walls):.3f})")
+    profile_run("render_eval", lambda: render_eval(scene, cams[0], bg, scene.max_sh_degree),
+                render_ms)
+    b5_args = (lay.gidx_c, lay.starts, lay.starts_al, lay.n_tiles, lay.P)
+    b3_args = (render["records_t"], lay.starts_al, lay.counts_k, lay.nx, lay.ny, bg)
+    b5_ms = cuda_ms(lambda: pt._align_compact(*b5_args))
+    b5_plain_ms = cuda_ms(lambda: pt.align_compact_plain(*b5_args))
+    b3_ms = cuda_ms(lambda: pt.pallas_composite_fwd(*b3_args))
+    b3_plain_ms = cuda_ms(lambda: pt.composite_fwd_plain(*b3_args), reps=5, warmup=1)
+    b5_bound_ms, b5_bound_by = b5_bound(lay)
+    b3_bound_ms, b3_bound_by = b3_bound(render["work"], lay)
+    log(f"B5 (nc {lay.nc}): {b5_ms:.4f} ms, plain {b5_plain_ms:.4f} ms, bound "
+        f"{b5_bound_ms:.4f} ms ({b5_bound_by})")
+    log(f"B3 ({lay.n_tiles} tiles, {int(lay.counts_k.sum())} pairs, {render['work'][0]} "
+        f"evaluations): {b3_ms:.4f} ms, plain {b3_plain_ms:.3f} ms, bound "
+        f"{b3_bound_ms:.4f} ms ({b3_bound_by})")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -642,8 +928,36 @@ def main() -> int:
         "bound_by": b2_bound_by,
         # no single PyTorch call computes the softmax-column-sum VJP
         "library_ms": None,
+    }, {
+        "name": "B5 _align_compact (_align_kernel)",
+        "route": "cuda",
+        "source": "sixdgs_torch/csrc/align_compact.cu",
+        "replaces": "sixdgs_tpu/ops/rasterizer/pallas_tiles.py:892",
+        "launches": render["launches"][0],
+        "max_abs_err": render["b5_err"],
+        "ms": b5_ms,
+        "plain_ms": b5_plain_ms,
+        "bound_ms": b5_bound_ms,
+        "bound_by": b5_bound_by,
+        # no single PyTorch call computes the aligned relocation
+        "library_ms": None,
+    }, {
+        "name": "B3 pallas_composite_fwd (_fwd_kernel, store_t=False)",
+        "route": "cuda",
+        "source": "sixdgs_torch/csrc/composite_fwd.cu",
+        "replaces": "sixdgs_tpu/ops/rasterizer/pallas_tiles.py:404",
+        "launches": render["launches"][1],
+        "max_abs_err": render["b3_err"],
+        "ms": b3_ms,
+        "plain_ms": b3_plain_ms,
+        "bound_ms": b3_bound_ms,
+        "bound_by": b3_bound_by,
+        # no single PyTorch call composites depth-ordered splats per tile
+        "library_ms": None,
     }]
     log("training step: " + json.dumps(train_timing))
+    log(f"render_eval per image: {render_ms:.3f} ms; image vs golden model max abs "
+        f"{render['render_err']:.3e}")
     log(gpu_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,19 +1,22 @@
 """sixdgs_torch — the PyTorch and CUDA port of sixdgs_tpu (6DGS).
 
 Single-image 6-DoF camera pose estimation against a trained 3DGS scene via
-ellipsoid-surface ray casting and cross-attention ray scoring, on an NVIDIA
-Hopper GPU. It mirrors the JAX package's relative paths and function names;
+ellipsoid-surface ray casting and cross-attention ray scoring, and the
+scene's rendering, on an NVIDIA Hopper GPU. It mirrors the JAX package's relative paths and function names;
 plain tensor math is PyTorch, and each TPU kernel on the ported path is a
 kernel written by hand for sm_90a (``csrc/``), built with nvcc at first use.
 
 Layout (ported so far):
-  ops/      SH, quaternions, sym-eig 3x3, LS lines, fused attention scores
-            (forward B1 and backward B2)
-  scene/    GaussianScene, byte-compatible PLY codec, structures
+  ops/      SH, quaternions and covariances, cameras, sym-eig 3x3, LS
+            lines, fused attention scores (forward B1 and backward B2),
+            rasterizer/ (projection, golden compositor, tile binning, the
+            tile rasterizer on B5 and B3, forward only)
+  scene/    GaussianScene, byte-compatible PLY codec, structures, cameras
   rays/     quadricell surface sampling, PCA normals, ray engine
   pose/     DINOv2 ViT-S/14, ray MLP, attention, camera-up head, loss,
             solver, evaluation, id-module trainer (Adafactor),
             camera-up augmentations
+  train/    render_eval (the render part of the 3DGS trainer)
   utils/    pose config, metrics writer
   weights   the JAX package's param dicts <-> the port's modules
 
@@ -36,6 +39,7 @@ def __getattr__(name):
         "solve_pose": ("sixdgs_torch.pose.solver", "solve_pose"),
         "eval_image": ("sixdgs_torch.pose.evaluate", "eval_image"),
         "test_pose_estimation": ("sixdgs_torch.pose.evaluate", "test_pose_estimation"),
+        "render_eval": ("sixdgs_torch.train.gs_trainer", "render_eval"),
     }
     if name in api:
         module, attr = api[name]

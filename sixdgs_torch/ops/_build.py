@@ -64,7 +64,34 @@ def build(name: str) -> float:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` loaded, built first if needed. Callers cache it
-    and set its function signatures once."""
+    """``csrc/<name>.cu`` loaded, built first if needed."""
     build(name)
     return ctypes.CDLL(str(_lib_path(name)))
+
+
+_bound = {}
+
+
+def bound_library(name: str, signatures: dict) -> ctypes.CDLL:
+    """``csrc/<name>.cu``, built and loaded at first use, with the C
+    signatures ``{function: (restype, argtypes)}`` set once."""
+    if name not in _bound:
+        lib = library(name)
+        for fn, (restype, argtypes) in signatures.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _bound[name] = lib
+    return _bound[name]
+
+
+def launch(fn, *args) -> None:
+    """Call the C launcher ``fn`` on the current stream of the first
+    argument's device: tensors go as their data pointers, the stream last.
+    Raises when it returns a CUDA error (a launch the card refused)."""
+    import torch
+
+    with torch.cuda.device(args[0].device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")

@@ -52,6 +52,8 @@ from typing import Tuple
 
 import torch
 
+from sixdgs_torch.ops import _build
+
 NEG = -9e15
 MODES = ("f32", "bf16", "bf16_split3")
 N_PATCHES = 256  # the kernel's patch count (16 x 16 DINOv2 grid)
@@ -144,29 +146,11 @@ _SIGNATURES = {
         "b2_dwk_splits": (ctypes.c_int, []),
     },
 }
-_libs = {}
 
 
 def _library(name: str) -> ctypes.CDLL:
-    """csrc/<name>.cu, built and loaded at first use, with its C signatures
-    set once."""
-    if name not in _libs:
-        from sixdgs_torch.ops._build import library
-
-        lib = library(name)
-        for fn, (restype, argtypes) in _SIGNATURES[name].items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _libs[name] = lib
-    return _libs[name]
-
-
-def _launch(fn, *args) -> None:
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
+    """csrc/<name>.cu, built and loaded at first use."""
+    return _build.bound_library(name, _SIGNATURES[name])
 
 
 def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
@@ -178,7 +162,7 @@ def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
     new = functools.partial(torch.empty, dtype=torch.float32, device=q.device)
     ins = [_aligned(t) for t in (q.T, ray_feats, wk, bk, pmask, valid)]
     scores, m, s = new(N), new(P, 1), new(P, 1)
-    _launch(lib.b1_attention_scores_fwd, *ins, scores, m, s, new(P, nb), new(P, nb),
+    _build.launch(lib.b1_attention_scores_fwd, *ins, scores, m, s, new(P, nb), new(P, nb),
             N, d, P, int(mode == "bf16"), math.sqrt(d))
     attention_scores_fused.launches += 1
     return scores, m, s
@@ -196,7 +180,7 @@ def _kernel_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode):
     dfeats, dq, dwk, dbk = new(N, d), new(P, d), new(d, d), new(d)
     scratch = (new(P, lib.b2_c_blocks(N)), new(P), new(n_ctas, P, d), new(n_ctas, d),
                new(lib.b2_dwk_splits(), d, d))
-    _launch(lib.b2_attention_scores_bwd, *ins, dfeats, dq, dwk, dbk, *scratch,
+    _build.launch(lib.b2_attention_scores_bwd, *ins, dfeats, dq, dwk, dbk, *scratch,
             N, d, P, int(mode == "bf16"), math.sqrt(d))
     attention_scores_bwd.launches += 1
     return dq, dfeats, dwk, dbk

@@ -99,6 +99,70 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
     return result
 
 
+def sh_basis_planes(deg: int, x, y, z):
+    """The per-coefficient SH basis factors as (deg+1)**2 flat planes: each
+    entry b_k is exactly the factor that multiplies ``sh[..., k]`` in
+    ``eval_sh``."""
+    basis = [C0 * torch.ones_like(x)]
+    if deg > 0:
+        basis += [-C1 * y, C1 * z, -C1 * x]
+        if deg > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            basis += [
+                C2[0] * xy,
+                C2[1] * yz,
+                C2[2] * (2.0 * zz - xx - yy),
+                C2[3] * xz,
+                C2[4] * (xx - yy),
+            ]
+            if deg > 2:
+                basis += [
+                    C3[0] * y * (3 * xx - yy),
+                    C3[1] * xy * z,
+                    C3[2] * y * (4 * zz - xx - yy),
+                    C3[3] * z * (2 * zz - 3 * xx - 3 * yy),
+                    C3[4] * x * (4 * zz - xx - yy),
+                    C3[5] * z * (xx - yy),
+                    C3[6] * x * (xx - 3 * yy),
+                ]
+                if deg > 3:
+                    basis += [
+                        C4[0] * xy * (xx - yy),
+                        C4[1] * yz * (3 * xx - yy),
+                        C4[2] * xy * (7 * zz - 1),
+                        C4[3] * yz * (7 * zz - 3),
+                        C4[4] * (zz * (35 * zz - 30) + 3),
+                        C4[5] * xz * (7 * zz - 3),
+                        C4[6] * (xx - yy) * (7 * zz - 1),
+                        C4[7] * xz * (xx - 3 * yy),
+                        C4[8] * (xx * (xx - 3 * yy) - yy * (3 * xx - yy)),
+                    ]
+    return basis
+
+
+def eval_sh_planes(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+    """``eval_sh`` for sh in the storage layout [P, n_coeffs, C] (note the
+    coefficient/channel order, the opposite of ``eval_sh``'s), as projection
+    uses it: [P, C]. Per-channel sums run in the same k order as
+    ``eval_sh``."""
+    if not 0 <= deg <= 4:
+        raise ValueError(f"SH degree must be in [0, 4], got {deg}")
+    P, C = sh.shape[0], sh.shape[2]
+    coeff = (deg + 1) ** 2
+    if sh.shape[1] < coeff:
+        raise ValueError(f"{sh.shape[1]} coefficients for degree {deg}")
+    basis = sh_basis_planes(deg, dirs[:, 0], dirs[:, 1], dirs[:, 2])
+    st = sh[:, :coeff, :].reshape(P, coeff * C).T  # [coeff*C, P]
+    cols = []
+    for c in range(C):
+        acc = basis[0] * st[c]
+        for k in range(1, coeff):
+            acc = acc + basis[k] * st[k * C + c]
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
+
+
 def rgb_to_sh(rgb: torch.Tensor) -> torch.Tensor:
     """RGB in [0,1] -> DC SH coefficient (reference RGB2SH, sh_utils.py:121)."""
     return (rgb - 0.5) / C0

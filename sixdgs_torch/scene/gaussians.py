@@ -5,8 +5,8 @@ layout of the reference package: arrays are padded to a capacity bucket and
 ``active`` marks the live Gaussians; padded entries get an identity
 quaternion and opacity -15 so they never contribute. Same parameterization:
 log-scale, sigmoid-opacity, unnormalized quaternion, SH features split
-dc/rest. ``create_from_pcd`` (it needs kNN) and the covariance accessors
-arrive with the rasterizer slice.
+dc/rest. ``create_from_pcd`` (it needs kNN) arrives with the training
+slice.
 """
 
 from __future__ import annotations
@@ -17,7 +17,12 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from sixdgs_torch.ops.transforms import quat_to_rotmat
+from sixdgs_torch.ops.transforms import (
+    build_a_mat,
+    build_covariance,
+    build_covariance_6,
+    quat_to_rotmat,
+)
 from sixdgs_torch.scene import ply_io
 
 CAPACITY_BUCKET = 16384
@@ -76,6 +81,15 @@ class GaussianScene:
 
     def get_rotation_mat(self) -> torch.Tensor:
         return quat_to_rotmat(self.rotation)
+
+    def get_covariance(self, scaling_modifier: float = 1.0) -> torch.Tensor:
+        return build_covariance_6(self.get_scaling, self.rotation, scaling_modifier)
+
+    def get_covariance_mat(self, scaling_modifier: float = 1.0) -> torch.Tensor:
+        return build_covariance(self.get_scaling, self.rotation, scaling_modifier)
+
+    def get_a_mat(self, scaling_modifier: float = 1.0) -> torch.Tensor:
+        return build_a_mat(self.get_scaling, self.rotation, scaling_modifier)
 
     # ------------------------------------------------------------- params
     def params(self) -> Dict[str, torch.Tensor]:

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card:
+B1 and B2 (attention scores), B5 (aligned-layout gather) and B3 (tile
+compositor).
 
 Imports torch and sixdgs_torch only, so it runs where JAX is not installed:
 
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from sixdgs_torch.ops import attention_kernel as tak
+from sixdgs_torch.ops.rasterizer import pallas_tiles as tpt
 
 
 def _b1_inputs(seed, P=256, d=384, N=5000, n_invalid=700):
@@ -134,3 +137,154 @@ class TestAttentionScoresBackwardKernel:
         ins = _b1_inputs(seed=8, N=1000, n_invalid=1000)
         dq, dfeats, dwk, dbk = _b2_check(ins, "f32", 1e-4, seed=9)
         assert dfeats.abs().max().item() > 0
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU and nvcc")
+
+
+def _layout(counts, nc=None, seed=0, P=100_000):
+    """A sorted compact layout with per-tile ``counts`` on the card: gidx
+    [nc], starts, starts_al (clamped to nc) as int32."""
+    counts = np.asarray(counts, np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    if nc is None:
+        nc = int(-(-(-(-counts // 128) * 128).sum() // 1024) * 1024) or 1024
+    gidx = np.full(nc, P, np.int64)
+    gidx[:min(starts[-1], nc)] = np.random.default_rng(seed).integers(
+        0, P, min(starts[-1], nc))
+    dev = torch.device("cuda")
+    starts_t = torch.tensor(starts, dtype=torch.int32, device=dev)
+    starts_al, _ = tpt._aligned_starts(starts_t, nc)
+    return torch.tensor(gidx, dtype=torch.int32, device=dev), starts_t, starts_al
+
+
+@pytest.mark.cuda
+class TestAlignCompactKernel:
+    """B5 equals its plain version exactly (int32 data movement)."""
+
+    @pytest.mark.parametrize("case", ["ragged", "empty_tiles", "all_empty", "truncated",
+                                      "full_1232x816"])
+    def test_kernel_equals_plain(self, case):
+        _need_card()
+        rng = np.random.default_rng(1)
+        counts, nc = {
+            "ragged": ([5, 0, 128, 129, 300, 0, 1, 127, 1000], None),
+            "empty_tiles": (np.where(rng.uniform(size=300) < 0.5, 0,
+                                     rng.integers(1, 400, 300)), None),
+            "all_empty": ([0] * 64, 1024),
+            # aligned demand 1408 > nc: trailing tiles are cut
+            "truncated": ([100, 200, 300, 150, 90, 130], 1024),
+            # the render path's layout: 77 x 51 tiles, ~119 pairs per tile
+            "full_1232x816": (rng.poisson(119, 77 * 51), 1 << 20),
+        }[case]
+        gidx, starts, starts_al = _layout(counts, nc)
+        n_tiles = len(counts)
+        before = tpt._align_compact.launches
+        got = tpt._align_compact(gidx, starts, starts_al, n_tiles, 100_000)
+        torch.cuda.synchronize()
+        assert tpt._align_compact.launches == before + 1
+        want = tpt.align_compact_plain(gidx, starts, starts_al, n_tiles, 100_000)
+        assert got.dtype == torch.int32 and got.shape == want.shape
+        assert torch.equal(got, want)
+
+
+def _records(counts, nx, ny, seed=0, opacity=(0.1, 0.99)):
+    """Aligned synthetic records [16, NC] on the card: per tile, pair means
+    around the tile, conics 0.05-0.3, colors in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int64)
+    spans = -(-counts // 128) * 128
+    starts = np.concatenate([[0], np.cumsum(spans)])
+    nc = int(starts[-1]) + 128
+    rec = np.zeros((16, nc), np.float32)
+    t = np.repeat(np.arange(nx * ny), counts)
+    idx = np.concatenate([np.arange(s, s + c) for s, c in zip(starts[:-1], counts)])
+    n = idx.size
+    rec[0, idx] = (t % nx) * 16 + rng.uniform(-4, 20, n)
+    rec[1, idx] = (t // nx) * 16 + rng.uniform(-4, 20, n)
+    rec[2, idx] = rng.uniform(0.05, 0.3, n)
+    rec[3, idx] = rng.uniform(-0.05, 0.05, n)
+    rec[4, idx] = rng.uniform(0.05, 0.3, n)
+    rec[5:8, idx] = rng.uniform(0, 1, (3, n))
+    rec[8, idx] = rng.uniform(*opacity, n)
+    dev = torch.device("cuda")
+    return (torch.tensor(rec, device=dev), torch.tensor(starts, dtype=torch.int32, device=dev),
+            torch.tensor(counts, dtype=torch.int32, device=dev))
+
+
+def _b3_close(got, want):
+    """B3 against its plain version: both float32 on the card, but the kernel
+    multiplies the transmittance serially (with FMA contraction) where the
+    plain version takes a cumulative product, so a pixel whose T (1 - alpha)
+    lands within rounding of T_EPS = 1e-4 can stop one pair apart. Such a
+    flip moves a channel by at most T_EPS alpha / (1 - alpha) (|c| + |bg|)
+    <= 9.9e-3 x 2 here; everywhere else the two agree to ~1e-6."""
+    err = (got - want).abs()
+    assert err.max().item() <= 2e-2
+    assert (err > 1e-4).float().mean().item() <= 1e-3
+
+
+@pytest.mark.cuda
+class TestCompositeKernel:
+    @pytest.mark.parametrize("case", ["ragged", "empty_tiles", "deep_opaque",
+                                      "deep_translucent", "full_1232x816"])
+    def test_kernel_matches_plain(self, case):
+        _need_card()
+        rng = np.random.default_rng(2)
+        nx, ny, counts, opacity = {
+            "ragged": (5, 3, [1, 127, 128, 129, 300, 0, 7, 50, 260, 511, 2, 3, 900, 64, 65],
+                       (0.1, 0.99)),
+            "empty_tiles": (9, 7, np.where(rng.uniform(size=63) < 0.4, 0,
+                                           rng.integers(1, 300, 63)), (0.1, 0.99)),
+            # >= 2000 pairs per tile; opaque enough that tiles exit early
+            "deep_opaque": (4, 4, rng.integers(2000, 2600, 16), (0.3, 0.99)),
+            # translucent: every pixel walks most of its segment
+            "deep_translucent": (4, 4, rng.integers(2000, 2600, 16), (0.001, 0.02)),
+            "full_1232x816": (77, 51, rng.poisson(119, 77 * 51), (0.1, 0.99)),
+        }[case]
+        rec, starts, counts_t = _records(counts, nx, ny, opacity=opacity)
+        bg = torch.tensor([0.1, 0.5, 0.9], device="cuda")
+        before = tpt.pallas_composite_fwd.launches
+        got = tpt.pallas_composite_fwd(rec, starts, counts_t, nx, ny, bg)
+        torch.cuda.synchronize()
+        assert tpt.pallas_composite_fwd.launches == before + 1
+        want = tpt.composite_fwd_plain(rec, starts, counts_t, nx, ny, bg)
+        assert got.shape == (nx * ny, 256, 3) and torch.isfinite(got).all()
+        _b3_close(got, want)
+        empty = counts_t == 0
+        if empty.any():  # empty tiles are pure background
+            assert torch.equal(got[empty], bg.expand(int(empty.sum()), 256, 3))
+
+    def test_render_on_card_matches_cpu_and_refuses_grad(self):
+        """rasterize_pallas through B5 and B3 on the card against the same
+        call on the CPU (plain versions), a ragged 50x35 image."""
+        _need_card()
+        from sixdgs_torch.ops.rasterizer.projection import ProjectedGaussians
+
+        rng = np.random.default_rng(3)
+        n, W, H = 400, 50, 35
+        fields = dict(
+            means2d=rng.uniform([-5, -5], [W + 5, H + 5], size=(n, 2)),
+            depths=rng.uniform(1, 5, n),
+            conics=np.stack([rng.uniform(0.05, 0.4, n), rng.uniform(-0.02, 0.02, n),
+                             rng.uniform(0.05, 0.4, n)], 1),
+            radii=np.full(n, 12),
+            colors=rng.uniform(0, 1, (n, 3)),
+            opacities=rng.uniform(0.05, 0.9, n))
+        proj = {d: ProjectedGaussians(**{
+            k: torch.tensor(v, dtype=torch.int32 if k == "radii" else torch.float32,
+                            device=d) for k, v in fields.items()}) for d in ("cpu", "cuda")}
+        bg = torch.tensor([0.2, 0.3, 0.4])
+        b3, b5 = tpt.pallas_composite_fwd.launches, tpt._align_compact.launches
+        got = tpt.rasterize_pallas(proj["cuda"], W, H, bg.cuda(), t_max=64)
+        torch.cuda.synchronize()
+        assert (tpt.pallas_composite_fwd.launches, tpt._align_compact.launches) == (b3 + 1,
+                                                                                    b5 + 1)
+        want = tpt.rasterize_pallas(proj["cpu"], W, H, bg, t_max=64)
+        assert got.shape == (3, H, W)
+        _b3_close(got.cpu(), want)
+        bad = proj["cuda"]._replace(colors=proj["cuda"].colors.clone().requires_grad_())
+        with pytest.raises(RuntimeError, match="forward-only"):
+            tpt.rasterize_pallas(bad, W, H, bg.cuda())
