@@ -298,7 +298,7 @@ def _compact_layout(proj: ProjectedGaussians, width: int, height: int, t_max: in
     records = _permute(torch.cat([proj.means2d, proj.conics, proj.colors,
                                   opac_all[:, None]], dim=-1), order)  # [P, 9]
     overflow_k, mid_k = _tier_sizes(P, overflow_k, mid_k)
-    key, tile_ids, gidx_all, counts_g, gbits = _fused_pair_keys(
+    key, counts_g, gbits = _fused_pair_keys(
         records[:, 0:2], proj.radii[order].to(torch.float32), visible[order],
         nx, ny, TILE, t_max, overflow_k=overflow_k, t_max_big=t_max_big,
         mid_k=mid_k, t_max_mid=t_max_mid, conics=records[:, 2:5], opac=records[:, 8])
@@ -306,24 +306,12 @@ def _compact_layout(proj: ProjectedGaussians, width: int, height: int, t_max: in
     ncb = ALIGN_CPB * KB
     nc = min(-(-(nc_pairs or DEFAULT_NC) // ncb) * ncb, -(-n_slots // ncb) * ncb)
     pad = max(-(-n_slots // KB) * KB, nc) - n_slots
-
-    if key is not None:
-        if pad:
-            key = torch.cat([key, torch.full((pad,), n_tiles << gbits,
-                                             dtype=torch.int64, device=dev)])
-        skey = torch.sort(key).values[:nc]
-        gidx_c = (skey & ((1 << gbits) - 1)).to(torch.int32)
-        tiles_c = (skey >> gbits).to(torch.int32)
-    else:
-        if pad:
-            tile_ids = torch.cat([tile_ids, torch.full((pad,), n_tiles,
-                                                       dtype=torch.int32, device=dev)])
-            gidx_all = torch.cat([gidx_all, torch.zeros(pad, dtype=torch.int32,
-                                                        device=dev)])
-        # two-key sort (tile major, depth rank minor) as two stable passes
-        by_g = torch.sort(gidx_all, stable=True).indices
-        by_t = by_g[torch.sort(tile_ids[by_g], stable=True).indices][:nc]
-        tiles_c, gidx_c = tile_ids[by_t], gidx_all[by_t]
+    if pad:
+        key = torch.cat([key, torch.full((pad,), n_tiles << gbits, dtype=torch.int64,
+                                         device=dev)])
+    skey = torch.sort(key).values[:nc]
+    gidx_c = (skey & ((1 << gbits) - 1)).to(torch.int32)
+    tiles_c = (skey >> gbits).to(torch.int32)
 
     starts = _segment_starts(tiles_c, n_tiles)
     starts_al, al_total = _aligned_starts(starts, nc)

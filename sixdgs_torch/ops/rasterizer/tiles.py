@@ -12,6 +12,9 @@ The port packs pair keys into int64 where the JAX package uses uint32:
 ``torch.sort`` sorts int64 on every device, and since real pairs' keys are
 unique the sorted compact layout is the same. Sentinel slots (tile id =
 n_tiles) may come back in another order, which the aligned layout masks.
+One non-negative int64 key holds tile and depth-rank fields of up to 62
+bits together, so the port has no counterpart of the two-key sort that
+the JAX package takes past 32 bits.
 """
 
 from __future__ import annotations
@@ -21,10 +24,6 @@ import torch
 from sixdgs_torch.ops.rasterizer.compositing import ALPHA_MIN
 
 RECORD = 9  # means2d(2) conic(3) color(3) opacity(1)
-# Fused keys hold (tile << gbits) | depth rank while tbits + gbits fit in
-# this many bits (the JAX package's uint32 budget); wider scenes take the
-# two-key sort. Kept as a module constant so a test can narrow it.
-KEY_BITS = 32
 
 
 def _permute(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
@@ -186,11 +185,8 @@ def _fused_pair_keys(means2d, radii_f, vis, nx: int, ny: int, tile: int,
                      conics=None, opac=None):
     """Pre-sort pair data of depth-ordered gaussians, three-tier budgets.
 
-    Returns (key, tile_ids, gidx, counts_g, gbits):
-      * key: [N_slots] int64 (tile << gbits) | depth-rank when
-        tbits + gbits <= KEY_BITS, else None;
-      * tile_ids/gidx: the unfused [N_slots] int32 pair when key is None
-        (two-key sort), else None;
+    Returns (key, counts_g, gbits):
+      * key: [N_slots] int64 (tile << gbits) | depth-rank;
       * counts_g: [P] int32 exact emitted pair count per depth-ranked
         gaussian;
       * gbits: bits of the depth-rank field.
@@ -200,6 +196,11 @@ def _fused_pair_keys(means2d, radii_f, vis, nx: int, ny: int, tile: int,
     P = means2d.shape[0]
     dev = means2d.device
     n_tiles = nx * ny
+    gbits = max(1, (P - 1).bit_length())
+    tbits = max(1, n_tiles.bit_length())  # tile ids go up to the sentinel
+    if tbits + gbits > 62:
+        raise ValueError(f"{n_tiles} tiles x {P} gaussians need {tbits + gbits} key "
+                         "bits, more than the 62 of a non-negative int64 key")
     overflow_k, mid_k = _tier_sizes(P, overflow_k, mid_k)
     x0, y0, x1, y1, cx, cy, area = _rect_bounds(means2d, radii_f, nx, ny, tile)
     giant_idx, giant_ok, mid_idx, mid_ok, in_tier = _select_tiers(
@@ -227,14 +228,10 @@ def _fused_pair_keys(means2d, radii_f, vis, nx: int, ny: int, tile: int,
     counts_g.index_add_(0, mid_idx, torch.where(mid_ok, mid_n, torch.zeros_like(mid_n)))
     counts_g.index_add_(0, giant_idx, torch.where(giant_ok, big_n, torch.zeros_like(big_n)))
 
-    gbits = max(1, (P - 1).bit_length())
-    tbits = max(1, n_tiles.bit_length())  # tile ids go up to the sentinel
     g_main = torch.arange(P, dtype=torch.int32, device=dev)[:, None].expand(P, t_max)
     g_mid = mid_idx.to(torch.int32)[:, None].expand(mid_ids.shape)
     g_big = giant_idx.to(torch.int32)[:, None].expand(big_ids.shape)
     tile_ids = torch.cat([main_ids.reshape(-1), mid_ids.reshape(-1), big_ids.reshape(-1)])
     gidx = torch.cat([g_main.reshape(-1), g_mid.reshape(-1), g_big.reshape(-1)])
-    if tbits + gbits <= KEY_BITS:
-        key = (tile_ids.to(torch.int64) << gbits) | gidx.to(torch.int64)
-        return key, None, None, counts_g, gbits
-    return None, tile_ids, gidx, counts_g, gbits
+    key = (tile_ids.to(torch.int64) << gbits) | gidx.to(torch.int64)
+    return key, counts_g, gbits

@@ -9,7 +9,7 @@ densification and checkpoints come with the training slice.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple
 
 import torch
 
@@ -61,11 +61,10 @@ def _project_params(params, active, cam: CameraArrays, width, height, sh_degree)
 
 
 def _render_params(params, active, cam: CameraArrays, width, height, sh_degree,
-                   bg, means2d_offset: Optional[torch.Tensor] = None, chunk: int = 256,
-                   rasterizer: str = "auto", tiers: tuple = DEFAULT_TIERS,
-                   nc_pairs: int = 0, with_stats: bool = False):
+                   bg, chunk: int = 256, rasterizer: str = "auto",
+                   tiers: tuple = DEFAULT_TIERS):
     """Project the scene's parameters through ``cam`` and rasterize:
-    (img [3, H, W], proj[, stats]). ``rasterizer``: "pallas" (the tile
+    (img [3, H, W], proj). ``rasterizer``: "pallas" (the tile
     rasterizer on the CUDA kernels; "auto" resolves to it) or "scan" (the
     golden model)."""
     rasterizer = resolve_rasterizer(rasterizer)
@@ -73,22 +72,14 @@ def _render_params(params, active, cam: CameraArrays, width, height, sh_degree,
         raise ValueError(f"rasterizer must be 'auto', 'pallas' or 'scan', got {rasterizer!r}")
     t_max, mid_k, t_max_mid, overflow_k, t_max_big = tiers
     proj = _project_params(params, active, cam, width, height, sh_degree)
-    if means2d_offset is not None:
-        proj = proj._replace(means2d=proj.means2d + means2d_offset)
-    stats = None
     if rasterizer == "pallas":
         from sixdgs_torch.ops.rasterizer.pallas_tiles import rasterize_pallas
 
         img = rasterize_pallas(proj, width, height, bg, t_max=t_max, mid_k=mid_k,
                                t_max_mid=t_max_mid, overflow_k=overflow_k,
-                               t_max_big=t_max_big, nc_pairs=nc_pairs,
-                               return_stats=with_stats)
-        if with_stats:
-            img, stats = img
+                               t_max_big=t_max_big)
     else:
         img = rasterize_scan(proj, width, height, bg, chunk=chunk)
-    if with_stats:
-        return img, proj, stats
     return img, proj
 
 
@@ -99,6 +90,6 @@ def render_eval(scene, cam, bg, sh_degree: int, chunk: int = 256,
     dev = scene.xyz.device
     bg = torch.as_tensor(bg, dtype=torch.float32, device=dev)
     img, _ = _render_params(scene.params(), scene.active, camera_arrays(cam, dev),
-                            cam.width, cam.height, sh_degree, bg, None, chunk,
-                            rasterizer, tiers)
+                            cam.width, cam.height, sh_degree, bg, chunk, rasterizer,
+                            tiers)
     return img

@@ -219,11 +219,14 @@ def _b3_close(got, want):
     multiplies the transmittance serially (with FMA contraction) where the
     plain version takes a cumulative product, so a pixel whose T (1 - alpha)
     lands within rounding of T_EPS = 1e-4 can stop one pair apart. Such a
-    flip moves a channel by at most T_EPS alpha / (1 - alpha) (|c| + |bg|)
-    <= 9.9e-3 x 2 here; everywhere else the two agree to ~1e-6."""
+    flip moves a channel by at most T_EPS alpha / (1 - alpha) |c - bg|
+    <= 9.9e-3 here; everywhere else the two agree to ~1e-6. Flips are rare
+    (about one pixel in a million), and a faulty tile moves 768 values, so
+    at most one pixel's three values, or a share of 1e-5, may be off by
+    more than 1e-4."""
     err = (got - want).abs()
     assert err.max().item() <= 2e-2
-    assert (err > 1e-4).float().mean().item() <= 1e-3
+    assert (err > 1e-4).sum().item() <= max(3, 1e-5 * err.numel())
 
 
 @pytest.mark.cuda

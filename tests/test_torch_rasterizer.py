@@ -2,8 +2,8 @@
 
 The same numpy inputs go through the JAX function and its port: the
 covariance builders, cameras, projection (SH degree 0 and 3), the golden
-compositor, binning (fused-key and two-key branches), segment and aligned
-starts, the plain versions of B5 (aligned-layout gather) and B3 (tile
+compositor, binning (the port's one int64 key, also where the JAX package
+takes its two-key sort), segment and aligned starts, the plain versions of B5 (aligned-layout gather) and B3 (tile
 compositor) against the Pallas kernels in interpret mode, rasterize_pallas
 and render_eval end to end. On CPU tensors the port's kernel wrappers run
 their plain versions, so no launch is counted here; the kernels themselves
@@ -325,9 +325,9 @@ class TestBinning:
         jk, _, _, jcounts, jbits = jtiles._fused_pair_keys(
             jnp.asarray(m), jnp.asarray(r), jnp.asarray(vis), nx, ny, 16, t_max,
             conics=jnp.asarray(con), opac=jnp.asarray(op), **kw)
-        tk, tt, tgi, tcounts, tbits = ttiles._fused_pair_keys(
+        tk, tcounts, tbits = ttiles._fused_pair_keys(
             _t(m), _t(r), _t(vis), nx, ny, 16, t_max, conics=_t(con), opac=_t(op), **kw)
-        assert tt is None and tgi is None and tbits == jbits
+        assert tbits == jbits
         assert tk.dtype == torch.int64
         np.testing.assert_array_equal(_np(tk), np.asarray(jk).astype(np.int64))
         np.testing.assert_array_equal(_np(tcounts), np.asarray(jcounts))
@@ -340,22 +340,31 @@ class TestBinning:
         if scale > 1.0:
             assert int(got["dropped_mid"]) + int(got["dropped_big"]) > 0
 
-    def test_two_key_branch(self, monkeypatch):
-        """Wider scenes than the key budget take the two-key sort: the
-        port's (tile, depth rank) pairs are the JAX package's fused key
-        fields, slot for slot."""
-        m, r, vis, con, op, nx, ny = _binning_inputs()
-        jk, _, _, jcounts, gbits = jtiles._fused_pair_keys(
-            jnp.asarray(m), jnp.asarray(r), jnp.asarray(vis), nx, ny, 16, 16,
-            conics=jnp.asarray(con), opac=jnp.asarray(op))
-        monkeypatch.setattr(ttiles, "KEY_BITS", 8)
-        tk, tiles_ids, gidx, tcounts, tbits = ttiles._fused_pair_keys(
-            _t(m), _t(r), _t(vis), nx, ny, 16, 16, conics=_t(con), opac=_t(op))
-        assert tk is None and tbits == gbits
-        jk = np.asarray(jk).astype(np.int64)
-        np.testing.assert_array_equal(_np(tiles_ids), jk >> gbits)
-        np.testing.assert_array_equal(_np(gidx), jk & ((1 << gbits) - 1))
+    def test_two_key_branch(self):
+        """Where tile + depth-rank bits pass 32 the JAX package takes its
+        two-key sort; the port's one int64 key carries the same (tile,
+        depth rank) pairs, slot for slot. Past 62 bits it refuses."""
+        P, nx, ny = 1 << 16, 400, 400  # 16 + 18 bits (test_pair_keys.py's case)
+        rng = np.random.default_rng(3)
+        m = rng.uniform([-10, -10], [nx * 16 + 10, ny * 16 + 10], size=(P, 2))
+        m = m.astype(np.float32)
+        r = rng.uniform(1.0, 40.0, size=P).astype(np.float32)
+        vis = rng.uniform(size=P) > 0.15
+        kw = dict(overflow_k=8, t_max_big=64, mid_k=32, t_max_mid=16)
+        jk, jtile_ids, jgidx, jcounts, gbits = jtiles._fused_pair_keys(
+            jnp.asarray(m), jnp.asarray(r), jnp.asarray(vis), nx, ny, 16, 4, **kw)
+        assert jk is None  # the JAX package's two-key branch
+        tk, tcounts, tbits = ttiles._fused_pair_keys(_t(m), _t(r), _t(vis), nx, ny, 16, 4,
+                                                     **kw)
+        assert tk.dtype == torch.int64 and tbits == gbits
+        np.testing.assert_array_equal(_np(tk >> gbits), np.asarray(jtile_ids))
+        np.testing.assert_array_equal(_np(tk & ((1 << gbits) - 1)), np.asarray(jgidx))
         np.testing.assert_array_equal(_np(tcounts), np.asarray(jcounts))
+        assert int(tcounts.sum()) > P
+        with pytest.raises(ValueError, match="key bits"):
+            ttiles._fused_pair_keys(torch.zeros(1 << 22, 2), torch.ones(1 << 22),
+                                    torch.ones(1 << 22, dtype=torch.bool), 1 << 20,
+                                    1 << 20, 16, 4)
 
     @pytest.mark.parametrize("seed", [0, 1])
     def test_segment_and_aligned_starts(self, seed):
@@ -537,15 +546,33 @@ class TestRasterizePallas:
         if case == "deep_segments":
             assert int(stats["nc_real"]) > 6 * 128 * 4
 
-    def test_two_key_branch_renders_the_same(self, monkeypatch):
-        jp = _jax_proj(150, 64, 48, 0)
-        bg = torch.tensor([0.3, 0.2, 0.1])
-        fused = tpt.rasterize_pallas(_to_torch_proj(jp), 64, 48, bg, t_max=64)
-        monkeypatch.setattr(ttiles, "KEY_BITS", 8)
-        two_key = tpt.rasterize_pallas(_to_torch_proj(jp), 64, 48, bg, t_max=64)
-        np.testing.assert_array_equal(_np(two_key), _np(fused))
-        _close(two_key, jcomp.rasterize_brute(jp, 64, 48, jnp.asarray(bg.numpy())),
-               atol=IMG_ATOL, rtol=0)
+    def test_two_key_branch_renders_the_same(self):
+        """A scene whose keys need 33 bits: the JAX package renders it
+        through its two-key sort, the port through one int64 key sort, and
+        the images and budget telemetry agree."""
+        P, W, H = (1 << 19) + 1, 1024, 1024  # 20 depth-rank + 13 tile bits
+        assert (P - 1).bit_length() + (W // 16 * H // 16).bit_length() > 32
+        rng = np.random.default_rng(8)
+        fields = dict(
+            means2d=rng.uniform(0, [W, H], size=(P, 2)),
+            depths=rng.uniform(1, 5, P),
+            conics=np.stack([rng.uniform(0.03, 0.1, P), rng.uniform(-0.01, 0.01, P),
+                             rng.uniform(0.03, 0.1, P)], 1),
+            # 200 visible gaussians spread over all depth ranks
+            radii=np.where(rng.permutation(P) < 200, 12, 0),
+            colors=rng.uniform(0, 1, (P, 3)),
+            opacities=rng.uniform(0.2, 0.9, P))
+        fields = {k: v.astype(np.int32 if k == "radii" else np.float32)
+                  for k, v in fields.items()}
+        jp = jproj.ProjectedGaussians(**{k: jnp.asarray(v) for k, v in fields.items()})
+        bg = np.array([0.3, 0.2, 0.1], np.float32)
+        kw = dict(t_max=4, nc_pairs=1 << 18, return_stats=True)
+        want, wstats = jpt.rasterize_pallas(jp, W, H, jnp.asarray(bg), interpret=True, **kw)
+        got, gstats = tpt.rasterize_pallas(_to_torch_proj(jp), W, H, _t(bg), **kw)
+        assert {k: int(v) for k, v in gstats.items()} == {k: int(v) for k, v in wstats.items()}
+        assert int(gstats["grad_dropped"]) == 0 and int(gstats["nc_real"]) > 200
+        _close(got, want, atol=IMG_ATOL, rtol=0)
+        assert (np.abs(_np(got) - bg[:, None, None]) > 0.05).mean() > 0.01  # splats show
 
     @pytest.mark.parametrize("case", ["empty", "all_culled", "single"])
     def test_degenerate_scenes(self, case):
