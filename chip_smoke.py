@@ -7,13 +7,17 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
 (``CUDA_HOME`` or /usr/local/cuda). Phases, each of which raises on failure:
 
   1. build every CUDA kernel of the ported paths from ``sixdgs_torch/csrc``
-     (one nvcc per source, all started together): B1, B2, B5, B3;
+     (one nvcc per source, all started together): B1, B2, B5, B3, B4;
   2. hold each kernel against its plain PyTorch version on the card: B1
      and B2 at the pose paths' shapes (P=256, d=384, N in {32768, 131072},
      all three precision modes, a partial patch mask and a padded tail of
      invalid rays, plus B2 with every ray invalid); B5 on a truncated
      1232x816 layout and on all-empty tiles (equal); B3 on 64 tiles of
-     2,000-2,600 pairs each, opaque (tiles exit early) and translucent;
+     2,000-2,600 pairs each, opaque (tiles exit early) and translucent, and
+     on the same tiles B3 with the transmittance store (``out`` bitwise as
+     without it, the store against the plain version's) and B4 under a
+     random cotangent (replay against its plain version, stored against
+     replay bitwise, a second launch bitwise);
   3. the pose serving path at full width: a random 262,144-Gaussian SH-3
      scene written with save_ply and read back with load_ply, rays from the
      default config (32,768-ray budget, 1,000 ellipsoids, 20-NN normals),
@@ -37,12 +41,30 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      tiers must drop no coverage; launch counts are zeroed just before and
      read just after (B5 and B3 each 16); one image is held against
      rasterize_scan (the golden model, plain torch, the same projection);
-     B5 and B3 against their plain versions on that camera's layout;
-  6. timing with CUDA events (each kernel, its plain version, its bound),
-     per-image eval_image and render_eval time, and profiles of one image,
-     one training step and one render. B1's ``launches`` counts calls of
-     its wrapper, each three CUDA kernels; B2's, each eight; B5's and B3's,
-     one each.
+     B5, B3 (with and without the store) and B4 (both modes) against
+     their plain versions on that camera's layout;
+  6. the 3DGS training path at full width: GSTrainer on a 262,144-point
+     cloud (create_from_pcd with the 3-NN at full size, held against
+     torch.cdist on a subset), its state set to the render scene perturbed
+     (colours, opacities, a little position noise) at SH degree 3, ground
+     truth from render_eval of the unperturbed scene through the 16 ring
+     cameras at 1232x816, then GSTrainer.run(rasterizer="auto") from
+     iteration 577 to 612: one adaptation iteration (595) and one
+     densification event (600). Launch counts are zeroed just before and
+     read just after: B3 with the store and B4 once per step, B5 once per
+     step plus the evaluation renders. Gates: grad_dropped 0 on every
+     telemetry step, the loss at the end below the loss at the start (and
+     the two evaluation cameras' PSNR above its value before the run), the
+     first step's gradients of all six parameter groups against a twin
+     step through the plain versions of B3 and B4, a densify event that
+     changes the Gaussian count and keeps the Adam moments' shapes, and a
+     finite eval_psnr on two cameras;
+  7. timing with CUDA events (each kernel, its plain version, its bound),
+     per-image eval_image and render_eval time, the 3DGS step time, and
+     profiles of one image, one id-module training step, one render and
+     one 3DGS training step. B1's ``launches`` counts calls of its wrapper,
+     each three CUDA kernels; B2's, each eight; B5's, B3's and B4's, one
+     each.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -101,7 +123,7 @@ N_TRAIN_CAMERAS = 16
 N_TRAIN_STEPS = 12
 N_PLAIN_STEPS = 4
 KERNEL_SOURCES = ("attention_scores", "attention_scores_bwd", "align_compact",
-                  "composite_fwd")
+                  "composite_fwd", "composite_bwd")
 # render path: the JAX package's Mip-NeRF 360 render size (bench.py), 77 x 51
 # = 3,927 tiles of 16 x 16, 16 cameras on the ring at radius 3.1, FoVs that
 # follow the aspect ratio, a white background
@@ -110,7 +132,7 @@ N_RENDER_CAMERAS = 16
 RENDER_FOVX = 0.9
 RENDER_BG = (1.0, 1.0, 1.0)
 # B3 against its plain version (both f32 on the card): the kernel multiplies
-# the transmittance serially (with FMA contraction) where the plain version
+# the transmittance serially where the plain version
 # takes a cumulative product per 128-pair chunk, so a pixel whose
 # T (1 - alpha) lands within rounding of T_EPS = 1e-4 can stop one pair
 # apart. A flip moves a channel by T alpha (c - bg) with T (1 - alpha) ~ T_EPS,
@@ -134,6 +156,38 @@ RENDER_SHARE_OVER_1E3 = 1e-4
 # pair) evaluation up to the pixel's stop, 14 more per contributing pair
 B3_OPS_PER_EVAL = 14
 B3_OPS_PER_CONTRIB = 14
+
+
+# B3's stored transmittance against the plain version's, on every lane a
+# pixel reaches: a serial product against a cumulative one, relative to
+# max(T, T_EPS)
+TEXCL_REL_ERR = 1e-5
+# B4 against its plain version (both f32 on the card, on the kernel's own
+# forward output): the nine sums run in another order, which shows at ~3e-6
+# of a gradient row's largest magnitude. A stop that flips at T_EPS (as for
+# B3) adds or drops one pixel's term of one pair, of size ~T |dout| with
+# T <= 1e-2, against row magnitudes of 1-50. So per row: max abs error <=
+# B4_MAX_ERR of the row's largest magnitude, and at most a B4_FLIP_SHARE of
+# the real lanes off by more than 1e-5 of it (one faulty tile of the render
+# scene is ~1.7e-4 of them)
+B4_MAX_ERR = 1e-3
+B4_FLIP_SHARE = 1e-5
+# B4's operation count (composite_bwd.cu): 14 f32 operations per (pixel,
+# pair) evaluation up to the pixel's stop, 50 more per contributing pair
+B4_OPS_PER_EVAL = 14
+B4_OPS_PER_CONTRIB = 50
+# 3DGS training path: the window of iterations, its adaptation iteration
+# and what the perturbation of the ground-truth scene adds
+GS_FIRST_IT, GS_LAST_IT, GS_ADAPT_EVERY, GS_LOG_EVERY = 577, 612, 595, 4
+GS_NOISE = {"features_dc": 0.3, "opacity": 0.5, "xyz": 0.002}
+# first step, kernels against the plain twin: each parameter group's
+# gradient against the group's largest magnitude (sums in another order
+# through B4, the segment sum and the projection's backward; a flipped stop
+# moves single pairs)
+GS_GRAD_TOL = 1e-3
+# mean_sq_dist_3nn against torch.cdist: the matrix-product form rounds at
+# eps |x|^2 ~ 1e-6 absolute, against squared distances of ~1e-3
+KNN_ATOL, KNN_RTOL = 4e-6, 1e-4
 
 
 def log(msg: str) -> None:
@@ -487,10 +541,59 @@ def b3_check(label: str, got, want) -> float:
     return worst
 
 
+def backward_checks(pt, label: str, args, out_nostore) -> float:
+    """B3 with the store and B4 on one set of compositor inputs ``args`` =
+    (records, starts, counts, nx, ny, bg), aligned: ``out`` with the store
+    bitwise equal to ``out_nostore``; the store against the plain version's
+    on reached lanes (TEXCL_REL_ERR); B4 replay against its plain version
+    under a random cotangent (B4_MAX_ERR, B4_FLIP_SHARE); stored against
+    replay and a second launch, bitwise. Returns B4's max abs error."""
+    rec, starts, counts, nx, ny, bg = args
+    out, tex = pt.pallas_composite_fwd(*args, store_t=True)
+    torch.cuda.synchronize()
+    same = torch.equal(out, out_nostore)
+    walk = pt._SegmentWalk(rec, starts, counts, nx, ny)
+    tex_err, reached = 0.0, 0
+    for k, c in enumerate(walk):
+        got = tex[walk.starts[c.act] // pt.KB + k]
+        rel = (got - c.texcl).abs() / c.texcl.clamp_min(1e-4)
+        tex_err = max(tex_err, torch.where(c.reached, rel, torch.zeros_like(rel)).max().item())
+        reached += int(c.reached.sum())
+    log(f"B3 store {label}: out bitwise equal to store_t=False: {same}; stored "
+        f"transmittance vs plain on {reached} reached lanes: max rel err {tex_err:.2e} "
+        f"(limit {TEXCL_REL_ERR})")
+    if not same or not tex_err <= TEXCL_REL_ERR:
+        raise AssertionError(f"B3 store {label}: out equal {same}, texcl err {tex_err}")
+    dout = torch.randn(out.shape, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED))
+    replay = pt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
+    stored = pt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout, aligned=True,
+                                     texcl=tex)
+    again = pt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
+    want = pt.composite_bwd_plain(rec, starts, counts, nx, ny, out, dout)
+    torch.cuda.synchronize()
+    bitwise = (torch.equal(replay, stored), torch.equal(replay, again))
+    scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+    err = (replay - want).abs()
+    rel = (err / scale)[:9]
+    real = int(counts.sum())
+    share = (rel > 1e-5).sum().item() / max(9 * real, 1)
+    log(f"B4 {label}: stored == replay bitwise: {bitwise[0]}; second launch bitwise: "
+        f"{bitwise[1]}; vs plain max_abs_err={err.max().item():.3e}, max err / row max "
+        f"{rel.max().item():.2e} (limit {B4_MAX_ERR}), share of real lanes off by > 1e-5 "
+        f"of the row max: {share:.2e} (limit {B4_FLIP_SHARE}); rows 9-15 zero: "
+        f"{not replay[9:].any().item()}")
+    if not (all(bitwise) and torch.isfinite(replay).all() and not replay[9:].any()
+            and rel.max().item() <= B4_MAX_ERR and share <= B4_FLIP_SHARE):
+        raise AssertionError(f"B4 {label} failed: bitwise {bitwise}, {rel.max().item()}, {share}")
+    return err.max().item()
+
+
 def phase_raster_kernels(pt, rng):
-    """B5 and B3 against their plain versions on synthetic layouts: B5 on a
-    truncated full-size layout and on all-empty tiles, B3 on segments of
-    2,000-2,600 pairs per tile, opaque (tiles exit early) and translucent."""
+    """B5, B3 and B4 against their plain versions on synthetic layouts: B5
+    on a truncated full-size layout and on all-empty tiles, B3 (with and
+    without the store) and B4 on segments of 2,000-2,600 pairs per tile,
+    opaque (tiles exit early) and translucent."""
     n_tiles = 77 * 51
     for label, counts, nc in (("truncated 1232x816", rng.poisson(300, n_tiles), 1 << 20),
                               ("all-empty", np.zeros(64, np.int64), 1024)):
@@ -517,6 +620,7 @@ def phase_raster_kernels(pt, rng):
         log(f"B3 {label}: 64 tiles of {int(counts.min())}-{int(counts.max())} pairs, "
             f"{evals / (64 * 256):.0f} evaluations per pixel")
         b3_check(label, got, want)
+        backward_checks(pt, label, (rec, starts, counts, 8, 8, bg), got)
 
 
 def render_cameras():
@@ -629,28 +733,32 @@ def phase_render(ak, scene):
         f"{torch.equal(gidx_al, want)}")
     if not torch.equal(gidx_al, want):
         raise AssertionError("B5 differs from its plain version on the scene's layout")
-    records_t = pt._gather_records(lay.records, gidx_al)
+    records_t = pt._gather_records(lay, gidx_al)
     out = pt.pallas_composite_fwd(records_t, lay.starts_al, lay.counts_k, lay.nx, lay.ny, bg)
     want, work = pt.composite_fwd_plain(records_t, lay.starts_al, lay.counts_k, lay.nx,
                                         lay.ny, bg, return_work=True)
     b3_err = b3_check("scene records", out, want)
     log(f"B3 scene work: {work[0]} evaluations ({work[0] / (lay.n_tiles * 256):.1f} per "
         f"pixel), {work[1]} contributions")
+    b4_err = backward_checks(pt, "scene records", (records_t, lay.starts_al, lay.counts_k,
+                                                   lay.nx, lay.ny, bg), out)
     log("phase 5 render: ok")
     return {"cams": cams, "bg": bg, "lay": lay, "records_t": records_t, "work": work,
-            "launches": launches, "b3_err": b3_err, "b5_err": b5_err,
-            "render_err": render_err}
+            "launches": launches, "b3_err": b3_err, "b5_err": b5_err, "b4_err": b4_err,
+            "render_err": render_err, "imgs": imgs}
 
 
-def b3_bound(work, lay):
+def b3_bound(work, lay, store: bool = False):
     """(bound_ms, bound_by) of one B3 call on ``lay``: the operations these
     inputs need (B3_OPS_PER_EVAL per evaluation up to each pixel's stop,
     B3_OPS_PER_CONTRIB per contributing pair) at the f32 peak, against the
     live record rows (9 floats per real pair), starts and counts read once
-    and the image written once."""
+    and the image written once; with the store, one transmittance written
+    per evaluation too."""
     evals, contribs = work
     ops = B3_OPS_PER_EVAL * evals + B3_OPS_PER_CONTRIB * contribs
-    nbytes = 4 * (9 * int(lay.counts_k.sum()) + 2 * lay.n_tiles + 3 + lay.n_tiles * 256 * 3)
+    nbytes = 4 * (9 * int(lay.counts_k.sum()) + 2 * lay.n_tiles + 3
+                  + lay.n_tiles * 256 * 3 + (evals if store else 0))
     t_ops, t_bytes = ops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -660,6 +768,215 @@ def b5_bound(lay):
     arrays read once, nc indices written (no arithmetic to speak of)."""
     nbytes = 4 * (int(lay.starts[-1]) + 2 * (lay.n_tiles + 1) + lay.nc)
     return 1e3 * nbytes / HBM_BYTES_PER_S, "bytes"
+
+
+def b4_bound(work, lay, stored: bool):
+    """(bound_ms, bound_by) of one B4 call on ``lay``: B4_OPS_PER_EVAL per
+    evaluation up to each pixel's stop and B4_OPS_PER_CONTRIB per
+    contributing pair at the f32 peak, against the live record rows, starts,
+    counts, out and dout read once and dpairs [16, nc] written once; the
+    stored mode also reads one transmittance per evaluation."""
+    evals, contribs = work
+    ops = B4_OPS_PER_EVAL * evals + B4_OPS_PER_CONTRIB * contribs
+    nbytes = 4 * (9 * int(lay.counts_k.sum()) + 2 * lay.n_tiles
+                  + 2 * lay.n_tiles * 256 * 3 + 16 * lay.nc + (evals if stored else 0))
+    t_ops, t_bytes = ops / F32_FLOPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+class plain_compositor:
+    """Within the block the compositor's wrappers run their plain versions
+    on the card (the twin that the kernels' training step is held against).
+    Used nowhere but here."""
+
+    def __init__(self, pt):
+        self.pt = pt
+
+    def __enter__(self):
+        pt = self.pt
+        self.saved = (pt.pallas_composite_fwd, pt.pallas_composite_bwd)
+
+        def fwd(records, starts, counts, nx, ny, bg, store_t=False):
+            return pt.composite_fwd_plain(records, starts, counts, nx, ny, bg, store_t=store_t)
+
+        def bwd(records, starts, counts, nx, ny, out, dout, aligned=False, texcl=None):
+            return pt.composite_bwd_plain(records, starts, counts, nx, ny, out, dout, texcl)
+
+        pt.pallas_composite_fwd, pt.pallas_composite_bwd = fwd, bwd
+
+    def __exit__(self, *exc):
+        self.pt.pallas_composite_fwd, self.pt.pallas_composite_bwd = self.saved
+
+
+def phase_gs_training(ak, pt, arrays, render, rng):
+    """The 3DGS training path at full width; returns what the timing phase
+    and the kernel records need."""
+    import dataclasses
+
+    from sixdgs_torch.ops.knn import mean_sq_dist_3nn
+    from sixdgs_torch.scene.gaussians import PARAM_NAMES, from_arrays
+    from sixdgs_torch.scene.structures import BasicPointCloud, SceneInfo
+    from sixdgs_torch.train import gs_trainer as gs
+    from sixdgs_torch.utils.config import ModelConfig, OptimizationConfig
+
+    # ground truth: the render phase's images of the unperturbed scene
+    cams = [dataclasses.replace(cam, image=img.cpu().numpy())
+            for cam, img in zip(render["cams"], render["imgs"])]
+    pcd = BasicPointCloud(points=arrays["xyz"], colors=rng.uniform(size=(N_GAUSSIANS, 3)),
+                          normals=np.zeros((N_GAUSSIANS, 3)))
+    info = SceneInfo(pcd, [], [], {"radius": 3.1, "translate": np.zeros(3)}, "")
+    opt = OptimizationConfig()
+    t0 = time.perf_counter()
+    trainer = gs.GSTrainer(ModelConfig(sh_degree=3, white_background=True), opt, info,
+                           cams, cams[:2], seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    init = trainer.state.scene
+    log(f"GSTrainer set-up (create_from_pcd, 3-NN of {N_GAUSSIANS} points): "
+        f"{time.perf_counter() - t0:.2f} s; capacity {init.capacity}, "
+        f"{int(init.num_active())} active")
+    pts = torch.tensor(arrays["xyz"], device="cuda")
+    sub = torch.arange(0, N_GAUSSIANS, N_GAUSSIANS // 2048, device="cuda")
+    d = torch.cdist(pts[sub], pts, compute_mode="donot_use_mm_for_euclid_dist")
+    want = torch.topk(d, 4, dim=1, largest=False).values[:, 1:].square().mean(1)
+    got = mean_sq_dist_3nn(pts)[sub]
+    knn_err = (got - want).abs().max().item()
+    log(f"mean_sq_dist_3nn vs torch.cdist on {sub.numel()} points: max abs err "
+        f"{knn_err:.2e} (mean value {want.mean().item():.3e}; limit {KNN_ATOL} + "
+        f"{KNN_RTOL} rel)")
+    if not bool(((got - want).abs() <= KNN_ATOL + KNN_RTOL * want).all()):
+        raise AssertionError(f"mean_sq_dist_3nn off torch.cdist by {knn_err}")
+    scales = np.log(np.sqrt(np.maximum(got.cpu().numpy(), 1e-7)))
+    if not np.allclose(init.scaling[sub].cpu().numpy(), scales[:, None], atol=1e-5):
+        raise AssertionError("create_from_pcd's scales do not follow the 3-NN distances")
+    del d, pts
+
+    # the state to train: the render scene perturbed, SH degree 3
+    noisy = dict(arrays)
+    for name, sigma in GS_NOISE.items():
+        noisy[name] = (arrays[name] + rng.normal(size=arrays[name].shape) * sigma).astype(
+            np.float32)
+    start_state = gs.init_train_state(from_arrays(noisy, max_sh_degree=3, device="cuda"))
+    trainer.state = start_state
+    trainer.active_sh_degree = 3
+    psnr_before = trainer.eval_psnr()
+
+    steps, logged, grabbed = [], [], {}
+
+    def pre_step(it, tr):
+        torch.cuda.synchronize()
+        steps.append((it, time.perf_counter(), torch.cuda.max_memory_allocated(),
+                      int(tr.state.scene.capacity)))
+        if it == GS_FIRST_IT + 1:
+            grabbed["m"] = dict(tr.state.adam.m)  # 0.1 x the first step's gradients
+        torch.cuda.reset_peak_memory_stats()
+
+    def callback(it, metrics, tr):
+        torch.cuda.synchronize()
+        logged.append((it, metrics, int(tr.state.scene.num_active())))
+
+    counters = (pt._align_compact, pt.pallas_composite_bwd, ak.attention_scores_fused,
+                ak.attention_scores_bwd)
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    pt.pallas_composite_fwd.launches = pt.pallas_composite_fwd.store_launches = 0
+    trainer.run(iterations=GS_LAST_IT, first_iteration=GS_FIRST_IT, log_every=GS_LOG_EVERY,
+                callback=callback, pre_step=pre_step, rasterizer="auto",
+                adapt_tiers_every=GS_ADAPT_EVERY)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    psnr_after = trainer.eval_psnr()
+    torch.cuda.synchronize()
+    n_steps = GS_LAST_IT - GS_FIRST_IT + 1
+    launches = {"b5": pt._align_compact.launches, "b4": pt.pallas_composite_bwd.launches,
+                "b3_store": pt.pallas_composite_fwd.store_launches,
+                "b3": pt.pallas_composite_fwd.launches}
+    log(f"phase 6 3DGS training: {n_steps} steps; launches {json.dumps(launches)} "
+        f"(expected B3 store {n_steps}, B4 {n_steps}, B5 {n_steps} + 2 evaluation renders, "
+        f"B3 without the store 2); B1 {ak.attention_scores_fused.launches}, "
+        f"B2 {ak.attention_scores_bwd.launches}")
+    if launches != {"b5": n_steps + 2, "b4": n_steps, "b3_store": n_steps, "b3": 2} or (
+            ak.attention_scores_fused.launches or ak.attention_scores_bwd.launches):
+        raise AssertionError(f"3DGS training path launches {launches}")
+
+    for it, m, n_active in logged:
+        log(f"  it {it}: loss {m['loss']:.6f} l1 {m['l1']:.6f} psnr {m['psnr']:.3f} "
+            f"nc_demand {m['binning_nc_demand']} nc_real {m['binning_nc_real']} "
+            f"grad_dropped {m['binning_grad_dropped']} dropped "
+            f"{m['binning_dropped_main']}/{m['binning_dropped_mid']}/"
+            f"{m['binning_dropped_big']} active {n_active}")
+        if m["binning_grad_dropped"] != 0 or not math.isfinite(m["loss"]):
+            raise AssertionError(f"iteration {it}: grad_dropped "
+                                 f"{m['binning_grad_dropped']}, loss {m['loss']}")
+    if [x[0] for x in logged] != [it for it in range(GS_FIRST_IT, GS_LAST_IT + 1)
+                                  if it % GS_LOG_EVERY == 0 or it == GS_LAST_IT]:
+        raise AssertionError(f"telemetry iterations {[x[0] for x in logged]}")
+    first_loss, last_loss = logged[0][1]["loss"], logged[-1][1]["loss"]
+    log(f"loss {first_loss:.6f} (it {logged[0][0]}) -> {last_loss:.6f} (it {logged[-1][0]}); "
+        f"eval_psnr on 2 cameras (psnr, l1) before {psnr_before} after {psnr_after}")
+    if not (last_loss < first_loss and all(map(math.isfinite, psnr_after))
+            and psnr_after[0] > psnr_before[0]):
+        raise AssertionError(f"loss {first_loss} -> {last_loss}, eval {psnr_before} -> "
+                             f"{psnr_after}")
+
+    # the densification event at iteration 600
+    before = next(n for it, _, n in logged if it == 600)
+    state = trainer.state
+    n_after = int(state.scene.num_active())
+    log(f"densify event at it 600: active {before} -> {n_after}, capacity "
+        f"{start_state.scene.capacity} -> {state.scene.capacity}")
+    if n_after == before:
+        raise AssertionError("the densification event left the Gaussian count unchanged")
+    for k in PARAM_NAMES:
+        shape = getattr(state.scene, k).shape
+        if not (state.adam.m[k].shape == state.adam.v[k].shape == shape
+                and shape[0] == state.scene.capacity):
+            raise AssertionError(f"Adam moments of {k} lost the scene's shape")
+
+    # first step against the plain twin: Adam's m after one step is 0.1 g
+    first_cam = list(cams).pop(int(np.random.default_rng(SEED).integers(len(cams))))
+    with plain_compositor(pt):
+        twin, _ = gs.train_step(
+            start_state, gs.camera_arrays(first_cam, "cuda", with_image=True), trainer.bg,
+            gs.lr_dict(opt, trainer.spatial_lr_scale, GS_FIRST_IT), width=RENDER_W,
+            height=RENDER_H, sh_degree=3, rasterizer="auto", with_telemetry=False)
+    torch.cuda.synchronize()
+    if pt.pallas_composite_bwd.launches != n_steps:
+        raise AssertionError("the plain twin launched B4")
+    worst = 0.0
+    for k in PARAM_NAMES:
+        g, w = 10 * grabbed["m"][k], 10 * twin.adam.m[k]
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        log(f"  first-step gradient of {k}: max |g| {scale:.3e}, kernels vs plain twin max "
+            f"abs err {err:.3e} ({err / scale:.2e} of it; limit {GS_GRAD_TOL})")
+        worst = max(worst, err / scale)
+        if not (scale > 0 and err <= GS_GRAD_TOL * scale):
+            raise AssertionError(f"first-step gradient of {k}: {err} > {GS_GRAD_TOL} * {scale}")
+
+    # steady steps: not the first (warm-up), not the adaptation iteration,
+    # not the densification iteration (its host event) and the step after
+    # it (new shapes)
+    ms = {it: 1e3 * (t1 - t0) for (it, t0, _, _), (_, t1, _, _)
+          in zip(steps, steps[1:] + [(None, t_end, None, None)])}
+    peaks = {it: p for (it, _, _, _), (_, _, p, _) in zip(steps, steps[1:])}
+    steady = [it for it in ms if it not in (GS_FIRST_IT, GS_ADAPT_EVERY, 600, 601)]
+    quiet = [it for it in steady if it % GS_LOG_EVERY]
+    timing = {
+        "gs_step_ms": statistics.median(ms[it] for it in quiet),
+        "gs_step_ms_with_telemetry": statistics.median(
+            ms[it] for it in steady if it % GS_LOG_EVERY == 0),
+        "gs_step_ms_min": min(ms[it] for it in quiet),
+        "gs_step_ms_max": max(ms[it] for it in quiet),
+        "gs_densify_iteration_ms": ms[600],
+        "gs_peak_gib": max(peaks[it] for it in steady if it in peaks) / 2**30,
+    }
+    log("3DGS training per step (host clock, median of steady steps without telemetry): "
+        + json.dumps(timing))
+    log("  per iteration ms: " + " ".join(f"{it}:{v:.1f}" for it, v in ms.items()))
+    log("phase 6 3DGS training: ok")
+    return {"launches": launches, "timing": timing, "trainer": trainer,
+            "start_state": start_state, "first_cam": first_cam, "grad_err": worst,
+            "n_steps": n_steps}
 
 
 def profile_run(label: str, run, unprofiled_ms: float) -> None:
@@ -801,7 +1118,10 @@ def main() -> int:
     # 5. render path at full width
     render = phase_render(ak, scene)
 
-    # 6. timing
+    # 6. 3DGS training path at full width
+    gs_run = phase_gs_training(ak, pt, arrays, render, rng)
+
+    # 7. timing
     n = KERNEL_NS[0]
     ins = b1_inputs(n, gen)
     ms = cuda_ms(lambda: ak.attention_scores_fused(*ins))
@@ -899,6 +1219,41 @@ def main() -> int:
     log(f"B3 ({lay.n_tiles} tiles, {int(lay.counts_k.sum())} pairs, {render['work'][0]} "
         f"evaluations): {b3_ms:.4f} ms, plain {b3_plain_ms:.3f} ms, bound "
         f"{b3_bound_ms:.4f} ms ({b3_bound_by})")
+    # the compositor's training variants on camera 0's layout
+    b3s_ms = cuda_ms(lambda: pt.pallas_composite_fwd(*b3_args, store_t=True))
+    b3s_plain_ms = cuda_ms(lambda: pt.composite_fwd_plain(*b3_args, store_t=True), reps=5,
+                           warmup=1)
+    out, tex = pt.pallas_composite_fwd(*b3_args, store_t=True)
+    dout = torch.randn(out.shape, device="cuda", generator=gen)
+    b4_args = (render["records_t"], lay.starts_al, lay.counts_k, lay.nx, lay.ny, out, dout)
+    b4_ms = cuda_ms(lambda: pt.pallas_composite_bwd(*b4_args, aligned=True, texcl=tex))
+    b4_replay_ms = cuda_ms(lambda: pt.pallas_composite_bwd(*b4_args))
+    b4_plain_ms = cuda_ms(lambda: pt.composite_bwd_plain(*b4_args, texcl=tex), reps=5,
+                          warmup=1)
+    b4_plain_replay_ms = cuda_ms(lambda: pt.composite_bwd_plain(*b4_args), reps=5, warmup=1)
+    b3s_bound_ms, b3s_bound_by = b3_bound(render["work"], lay, store=True)
+    b4_bound_ms, b4_bound_by = b4_bound(render["work"], lay, stored=True)
+    b4_replay_bound_ms, _ = b4_bound(render["work"], lay, stored=False)
+    log(f"B3 with the store: {b3s_ms:.4f} ms (without {b3_ms:.4f}), plain "
+        f"{b3s_plain_ms:.3f} ms, bound {b3s_bound_ms:.4f} ms ({b3s_bound_by})")
+    log(f"B4 stored: {b4_ms:.4f} ms, plain {b4_plain_ms:.3f} ms, bound {b4_bound_ms:.4f} ms "
+        f"({b4_bound_by}); replay: {b4_replay_ms:.4f} ms, plain {b4_plain_replay_ms:.3f} "
+        f"ms, bound {b4_replay_bound_ms:.4f} ms")
+    del out, tex, dout, b4_args
+
+    # one more 3DGS step after the counted run, profiled
+    from sixdgs_torch.train import gs_trainer as gs
+
+    tr = gs_run["trainer"]
+    cam_arrays = tr._camera_arrays(gs_run["first_cam"])
+    lrs = gs.lr_dict(tr.opt, tr.spatial_lr_scale, GS_LAST_IT + 1)
+
+    def gs_step():
+        gs.train_step(tr.state, cam_arrays, tr.bg, lrs, width=RENDER_W, height=RENDER_H,
+                      sh_degree=3, rasterizer="auto", with_telemetry=False)
+
+    gs_step()
+    profile_run("3DGS training step", gs_step, gs_run["timing"]["gs_step_ms"])
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -936,7 +1291,10 @@ def main() -> int:
         "route": "cuda",
         "source": "sixdgs_torch/csrc/align_compact.cu",
         "replaces": "sixdgs_tpu/ops/rasterizer/pallas_tiles.py:892",
-        "launches": render["launches"][0],
+        # this slice's path (3DGS training); the render path's count beside it
+        "launches": gs_run["launches"]["b5"],
+        "launches_by_path": {"render": render["launches"][0],
+                             "gs_training": gs_run["launches"]["b5"]},
         "max_abs_err": render["b5_err"],
         "ms": b5_ms,
         "plain_ms": b5_plain_ms,
@@ -945,20 +1303,49 @@ def main() -> int:
         # no single PyTorch call computes the aligned relocation
         "library_ms": None,
     }, {
-        "name": "B3 pallas_composite_fwd (_fwd_kernel, store_t=False)",
+        "name": "B3 pallas_composite_fwd (_fwd_kernel; ms is store_t=False, store_t_* "
+                "the training variant)",
         "route": "cuda",
         "source": "sixdgs_torch/csrc/composite_fwd.cu",
         "replaces": "sixdgs_tpu/ops/rasterizer/pallas_tiles.py:404",
-        "launches": render["launches"][1],
+        "launches": gs_run["launches"]["b3_store"] + gs_run["launches"]["b3"],
+        "launches_by_path": {"render": render["launches"][1],
+                             "gs_training_store_t": gs_run["launches"]["b3_store"],
+                             "gs_training_eval": gs_run["launches"]["b3"]},
         "max_abs_err": render["b3_err"],
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,
         "bound_ms": b3_bound_ms,
         "bound_by": b3_bound_by,
+        "store_t_ms": b3s_ms,
+        "store_t_plain_ms": b3s_plain_ms,
+        "store_t_bound_ms": b3s_bound_ms,
+        "store_t_bound_by": b3s_bound_by,
         # no single PyTorch call composites depth-ordered splats per tile
         "library_ms": None,
+    }, {
+        "name": "B4 pallas_composite_bwd (_bwd_kernel; ms is the stored mode, replay_* "
+                "the replaying one)",
+        "route": "cuda",
+        "source": "sixdgs_torch/csrc/composite_bwd.cu",
+        "replaces": "sixdgs_tpu/ops/rasterizer/pallas_tiles.py:503",
+        "launches": gs_run["launches"]["b4"],
+        "max_abs_err": render["b4_err"],
+        "ms": b4_ms,
+        "plain_ms": b4_plain_ms,
+        "bound_ms": b4_bound_ms,
+        "bound_by": b4_bound_by,
+        "replay_ms": b4_replay_ms,
+        "replay_plain_ms": b4_plain_replay_ms,
+        "replay_bound_ms": b4_replay_bound_ms,
+        # no single PyTorch call differentiates a per-tile compositor
+        "library_ms": None,
     }]
+    for r in records:
+        r["card_ms"] = r["ms"]
     log("training step: " + json.dumps(train_timing))
+    log("3DGS training step: " + json.dumps(gs_run["timing"])
+        + f"; first-step gradients vs plain twin, worst err / scale {gs_run['grad_err']:.2e}")
     log(f"render_eval per image: {render_ms:.3f} ms; image vs golden model max abs "
         f"{render['render_err']:.3e}")
     log(gpu_line())

@@ -2,22 +2,24 @@
 
 Single-image 6-DoF camera pose estimation against a trained 3DGS scene via
 ellipsoid-surface ray casting and cross-attention ray scoring, and the
-scene's rendering, on an NVIDIA Hopper GPU. It mirrors the JAX package's relative paths and function names;
+scene's rendering and training, on an NVIDIA Hopper GPU. It mirrors the JAX package's relative paths and function names;
 plain tensor math is PyTorch, and each TPU kernel on the ported path is a
 kernel written by hand for sm_90a (``csrc/``), built with nvcc at first use.
 
 Layout (ported so far):
   ops/      SH, quaternions and covariances, cameras, sym-eig 3x3, LS
             lines, fused attention scores (forward B1 and backward B2),
-            rasterizer/ (projection, golden compositor, tile binning, the
-            tile rasterizer on B5 and B3, forward only)
+            SSIM / PSNR / L1, exact kNN, rasterizer/ (projection, golden
+            compositor, tile binning, the tile rasterizer on B5, B3 and,
+            for gradients, B4)
   scene/    GaussianScene, byte-compatible PLY codec, structures, cameras
   rays/     quadricell surface sampling, PCA normals, ray engine
   pose/     DINOv2 ViT-S/14, ray MLP, attention, camera-up head, loss,
             solver, evaluation, id-module trainer (Adafactor),
             camera-up augmentations
-  train/    render_eval (the render part of the 3DGS trainer)
-  utils/    pose config, metrics writer
+  train/    the 3DGS trainer (train_step, GSTrainer, render_eval),
+            per-group Adam, densification, checkpoints
+  utils/    configs, metrics writer
   weights   the JAX package's param dicts <-> the port's modules
 
 Entry points run on "cuda" unless the caller passes ``device="cpu"``.
@@ -40,6 +42,7 @@ def __getattr__(name):
         "eval_image": ("sixdgs_torch.pose.evaluate", "eval_image"),
         "test_pose_estimation": ("sixdgs_torch.pose.evaluate", "test_pose_estimation"),
         "render_eval": ("sixdgs_torch.train.gs_trainer", "render_eval"),
+        "GSTrainer": ("sixdgs_torch.train.gs_trainer", "GSTrainer"),
     }
     if name in api:
         module, attr = api[name]

@@ -1,7 +1,7 @@
 // Tile compositor forward (B3) for Hopper, sm_90a.
 //
 // Replaces the TPU kernel sixdgs_tpu/ops/rasterizer/pallas_tiles.py::_fwd_kernel
-// (launched by pallas_composite_fwd, store_t=False). For every 16x16 tile t
+// (launched by pallas_composite_fwd, both store_t variants). For every 16x16 tile t
 // it composites the tile's depth-ordered pair segment
 // [starts[t], starts[t] + counts[t]) of the plane-major records [16, nc]
 // (rows x, y, conA, conB, conC, r, g, b, opacity; 7 padding rows never read)
@@ -25,6 +25,19 @@
 // 256 pixels have stopped (__syncthreads_count), as the TPU kernel's early
 // tile exit does.
 //
+// With the store (a training step's forward, aligned layout only) the same
+// kernel also writes each pixel's transmittance before each pair into
+// texcl [nc / 128, 256, 128], which the backward (composite_bwd.cu) rereads
+// instead of replaying. A thread owns a pixel, and a pixel's row of a block
+// is 512 bytes from the next pixel's, so the threads put 32 pairs' worth
+// into a [256, 32] shared-memory tile and the warps then write it out one
+// row (128 contiguous bytes) at a time. A stopped pixel stores its frozen
+// transmittance. Blocks after the tile's early exit stay unwritten: the
+// backward takes the same exit. The per-pair arithmetic is
+// composite_tiles.cuh's, shared with the backward, and has no FMA that the
+// compiler could contract differently in the two variants, so out is bitwise
+// the same with and without the store.
+//
 // Bound: each (pixel, pair) evaluation up to the pixel's stop costs 14 f32
 // operations (tile-local offsets, dx, dy and the quadratic), and each
 // contributing pair another 14 (exp, opacity scale, clamp, the two tests, 1 - alpha,
@@ -34,23 +47,20 @@
 // data). This first version spends no effort on the per-pair serial latency:
 // each thread's loop is a chain of dependent f32 operations.
 
-#include <cuda_runtime.h>
+#include "composite_tiles.cuh"
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int NPIX = TILE * TILE;  // one thread per pixel
-constexpr int KB = 128;            // pairs staged per round
-constexpr int LIVE_ROWS = 9;       // x, y, conA, conB, conC, r, g, b, opacity
-constexpr float ALPHA_MIN = 1.0f / 255.0f;
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float T_EPS = 1e-4f;
+using namespace comp;
 
+template <bool STORE_T>
 __global__ void __launch_bounds__(NPIX)
 b3_composite_fwd(const float* __restrict__ records, long long nc,
                  const int* __restrict__ starts, const int* __restrict__ counts,
-                 int nx, const float* __restrict__ bg, float* __restrict__ out) {
+                 int nx, const float* __restrict__ bg, float* __restrict__ out,
+                 float* __restrict__ texcl) {
   __shared__ float rec[LIVE_ROWS][KB];
+  __shared__ float tbuf[STORE_T ? NPIX : 1][TS];
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const float px = (float)(tid % TILE);
@@ -65,39 +75,51 @@ b3_composite_fwd(const float* __restrict__ records, long long nc,
   for (int base = 0; base < count; base += KB) {
     const int n = min(KB, count - base);
     __syncthreads();  // every thread has finished reading the previous round
-    for (int i = tid; i < LIVE_ROWS * KB; i += NPIX) {
-      const int r = i / KB;
-      const int l = i % KB;
-      rec[r][l] = l < n ? records[r * nc + start + base + l] : 0.f;
-    }
+    stage_records<KB>(rec, records, nc, start + base, n);
     __syncthreads();
-    if (!done) {
-      for (int j = 0; j < n; ++j) {
-        const float dx = px - (rec[0][j] - ox);
-        const float dy = py - (rec[1][j] - oy);
-        const float power =
-            -0.5f * (rec[2][j] * dx * dx + rec[4][j] * dy * dy) - rec[3][j] * dx * dy;
-        if (!(power <= 0.f)) continue;  // NaN-safe, as the live test
-        const float alpha = fminf(ALPHA_MAX, rec[8][j] * expf(power));
+    float* blk = STORE_T ? texcl + ((start + base) / KB * NPIX) * KB : nullptr;
+    for (int sub = 0; sub < (STORE_T ? n : 1); sub += SB) {
+      // without the store: one walk over the chunk, and a stopped pixel
+      // idles. With it: 32 pairs at a time, and a stopped pixel, like the
+      // lanes past the segment's end, goes on filling its row of the tile
+      // with the frozen transmittance
+      const int hi = STORE_T ? sub + SB : (done ? 0 : n);
+      for (int j = sub; j < hi; ++j) {
+        if constexpr (STORE_T) {
+          tbuf[tid][j - sub] = T;
+          if (done || j >= n) continue;
+        }
+        float dx, dy, g_raw;
+        const float power = pair_power<KB>(rec, j, px, py, ox, oy, dx, dy);
+        if (!(power <= 0.f)) continue;
+        const float alpha = pair_alpha(rec[8][j], power, g_raw);
         if (!(alpha >= ALPHA_MIN)) continue;
-        const float test_t = T * (1.f - alpha);
+        const float test_t = next_transmittance(T, alpha);
         if (test_t < T_EPS) {
           done = 1;
-          break;
+          if constexpr (STORE_T) continue; else break;
         }
-        const float w = alpha * T;
-        c0 += rec[5][j] * w;
-        c1 += rec[6][j] * w;
-        c2 += rec[7][j] * w;
+        const float w = __fmul_rn(alpha, T);
+        c0 = __fmaf_rn(rec[5][j], w, c0);
+        c1 = __fmaf_rn(rec[6][j], w, c1);
+        c2 = __fmaf_rn(rec[7][j], w, c2);
         T = test_t;
+      }
+      if constexpr (STORE_T) {
+        __syncthreads();
+        // warp w writes rows w, w + 8, ...: 32 lanes = 128 contiguous bytes
+        for (int row = tid / 32; row < NPIX; row += WARPS) {
+          blk[(long long)row * KB + sub + tid % 32] = tbuf[row][tid % 32];
+        }
+        __syncthreads();
       }
     }
     if (__syncthreads_count(done) == NPIX) break;  // every pixel has stopped
   }
   float* o = out + ((long long)t * NPIX + tid) * 3;
-  o[0] = c0 + T * bg[0];
-  o[1] = c1 + T * bg[1];
-  o[2] = c2 + T * bg[2];
+  o[0] = __fmaf_rn(T, bg[0], c0);
+  o[1] = __fmaf_rn(T, bg[1], c1);
+  o[2] = __fmaf_rn(T, bg[2], c2);
 }
 
 }  // namespace
@@ -106,14 +128,21 @@ extern "C" {
 
 // records: [16, nc] float32 (plane-major); starts [n_tiles (+1)] and counts
 // [n_tiles] int32 with starts[t] + counts[t] <= nc; bg [3] float32; out
-// [n_tiles, 256, 3] float32. All device pointers. Returns the launch's CUDA
-// error (0 when accepted).
+// [n_tiles, 256, 3] float32; texcl null, or [nc / 128, 256, 128] float32
+// with every starts[t] a multiple of 128 (the aligned layout). All device
+// pointers. Returns the launch's CUDA error (0 when accepted).
 int b3_composite_fwd_launch(const float* records, long long nc, const int* starts,
                             const int* counts, int n_tiles, int nx, const float* bg,
-                            float* out, void* stream) {
+                            float* out, float* texcl, void* stream) {
   if (n_tiles <= 0 || nx <= 0) return (int)cudaErrorInvalidValue;
-  b3_composite_fwd<<<n_tiles, NPIX, 0, static_cast<cudaStream_t>(stream)>>>(
-      records, nc, starts, counts, nx, bg, out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (texcl != nullptr) {
+    b3_composite_fwd<true><<<n_tiles, NPIX, 0, s>>>(records, nc, starts, counts, nx, bg,
+                                                    out, texcl);
+  } else {
+    b3_composite_fwd<false><<<n_tiles, NPIX, 0, s>>>(records, nc, starts, counts, nx, bg,
+                                                     out, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 

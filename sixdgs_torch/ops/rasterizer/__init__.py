@@ -5,8 +5,8 @@
   * compositing.py — exact depth-sorted front-to-back compositing over the
     whole image (the golden model).
   * tiles.py / pallas_tiles.py — tile binning and the tile rasterizer on
-    the hand-written CUDA kernels B5 (aligned-layout gather) and B3 (tile
-    compositor), forward only for now.
+    the hand-written CUDA kernels B5 (aligned-layout gather), B3 (tile
+    compositor) and B4 (its backward).
 """
 
 from sixdgs_torch.ops.rasterizer.compositing import rasterize_scan

@@ -5,8 +5,9 @@ clipped tile rect of each Gaussian's screen radius, the three-tier slot
 budgets (``t_max`` tiles for most Gaussians, ``t_max_mid`` for the
 ``mid_k`` next-largest rects, ``t_max_big`` for the ``overflow_k``
 largest), conic-precise tile culling, the fused (tile, depth-rank) pair
-keys and the ``binning_saturation`` telemetry. ``rasterize_tiled`` and the
-custom VJPs of this module come with the training slice.
+keys, the ``binning_saturation`` telemetry and ``_permute``.
+``rasterize_tiled`` and its VJPs (``_pair_gather``, ``_window``) are not
+ported yet.
 
 The port packs pair keys into int64 where the JAX package uses uint32:
 ``torch.sort`` sorts int64 on every device, and since real pairs' keys are
@@ -26,10 +27,25 @@ from sixdgs_torch.ops.rasterizer.compositing import ALPHA_MIN
 RECORD = 9  # means2d(2) conic(3) color(3) opacity(1)
 
 
+class _Permute(torch.autograd.Function):
+    """x[perm] for a permutation ``perm``, with the gather g[inv_perm] as
+    its backward (the JAX package's scatter-free VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, perm):
+        ctx.save_for_backward(perm)
+        return x[perm]
+
+    @staticmethod
+    def backward(ctx, g):
+        (perm,) = ctx.saved_tensors
+        inv_perm = torch.empty_like(perm)
+        inv_perm[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+        return g[inv_perm], None
+
+
 def _permute(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """x[perm], forward only (the JAX package's scatter-free VJP comes with
-    the training slice)."""
-    return x[perm]
+    return _Permute.apply(x, perm)
 
 
 def _emit_counts(x0, y0, x1, y1, valid, budget: int):

@@ -5,8 +5,7 @@ layout of the reference package: arrays are padded to a capacity bucket and
 ``active`` marks the live Gaussians; padded entries get an identity
 quaternion and opacity -15 so they never contribute. Same parameterization:
 log-scale, sigmoid-opacity, unnormalized quaternion, SH features split
-dc/rest. ``create_from_pcd`` (it needs kNN) arrives with the training
-slice.
+dc/rest.
 """
 
 from __future__ import annotations
@@ -17,13 +16,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from sixdgs_torch.ops.knn import mean_sq_dist_3nn
+from sixdgs_torch.ops.sh import rgb_to_sh
 from sixdgs_torch.ops.transforms import (
     build_a_mat,
     build_covariance,
     build_covariance_6,
+    inverse_sigmoid,
     quat_to_rotmat,
 )
 from sixdgs_torch.scene import ply_io
+from sixdgs_torch.scene.structures import BasicPointCloud
 
 CAPACITY_BUCKET = 16384
 
@@ -138,6 +141,35 @@ def from_arrays(
     kw = {name: torch.tensor(v, device=device) for name, v in padded.items()}
     return GaussianScene(active=torch.tensor(active, device=device),
                          max_sh_degree=max_sh_degree, **kw)
+
+
+def create_from_pcd(pcd: BasicPointCloud, max_sh_degree: int = 3,
+                    capacity: Optional[int] = None, device="cuda") -> GaussianScene:
+    """Initialize from a point cloud (gaussian_model.py:189-228): DC SH from
+    colors, isotropic log-scale from sqrt(mean 3-NN squared distance),
+    identity rotation, opacity inverse_sigmoid(0.1). The 3-NN runs on
+    ``device``."""
+    pts = np.asarray(pcd.points, np.float32)
+    n = pts.shape[0]
+    fused_color = rgb_to_sh(torch.tensor(np.asarray(pcd.colors, np.float32))).numpy()
+    dist2 = mean_sq_dist_3nn(torch.tensor(pts, device=device)).cpu().numpy()
+    scales = np.log(np.sqrt(np.maximum(dist2, 1e-7)))[:, None].repeat(3, axis=1)
+    rots = np.zeros((n, 4), np.float32)
+    rots[:, 0] = 1.0
+    opacities = inverse_sigmoid(0.1 * torch.ones((n, 1), dtype=torch.float32)).numpy()
+    return from_arrays(
+        {
+            "xyz": pts,
+            "features_dc": fused_color.reshape(n, 1, 3),
+            "features_rest": np.zeros((n, (max_sh_degree + 1) ** 2 - 1, 3), np.float32),
+            "opacity": opacities,
+            "scaling": scales.astype(np.float32),
+            "rotation": rots,
+        },
+        max_sh_degree=max_sh_degree,
+        capacity=capacity,
+        device=device,
+    )
 
 
 def load_ply(path: str, max_sh_degree: int = 3, capacity: Optional[int] = None,

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-B1 and B2 (attention scores), B5 (aligned-layout gather) and B3 (tile
-compositor).
+B1 and B2 (attention scores), B5 (aligned-layout gather), B3 (tile
+compositor, with and without the transmittance store) and B4 (its
+backward, replaying and stored), and a training step on the card against
+the same step on the CPU.
 
 Imports torch and sixdgs_torch only, so it runs where JAX is not installed:
 
@@ -216,7 +218,7 @@ def _records(counts, nx, ny, seed=0, opacity=(0.1, 0.99)):
 
 def _b3_close(got, want):
     """B3 against its plain version: both float32 on the card, but the kernel
-    multiplies the transmittance serially (with FMA contraction) where the
+    multiplies the transmittance serially where the
     plain version takes a cumulative product, so a pixel whose T (1 - alpha)
     lands within rounding of T_EPS = 1e-4 can stop one pair apart. Such a
     flip moves a channel by at most T_EPS alpha / (1 - alpha) |c - bg|
@@ -288,6 +290,137 @@ class TestCompositeKernel:
         want = tpt.rasterize_pallas(proj["cpu"], W, H, bg, t_max=64)
         assert got.shape == (3, H, W)
         _b3_close(got.cpu(), want)
-        bad = proj["cuda"]._replace(colors=proj["cuda"].colors.clone().requires_grad_())
-        with pytest.raises(RuntimeError, match="forward-only"):
-            tpt.rasterize_pallas(bad, W, H, bg.cuda())
+        # gradients through B3 (store) and B4 against the plain versions
+        grads = {}
+        b3s, b4 = tpt.pallas_composite_fwd.store_launches, tpt.pallas_composite_bwd.launches
+        for d in ("cpu", "cuda"):
+            leaves = [getattr(proj[d], f).clone().requires_grad_()
+                      for f in ("means2d", "conics", "colors", "opacities")]
+            p = proj[d]._replace(means2d=leaves[0], conics=leaves[1], colors=leaves[2],
+                                 opacities=leaves[3])
+            img = tpt.rasterize_pallas(p, W, H, bg.to(d), t_max=64)
+            grads[d] = torch.autograd.grad(img.square().sum(), leaves)
+        torch.cuda.synchronize()
+        assert (tpt.pallas_composite_fwd.store_launches, tpt.pallas_composite_bwd.launches) == (
+            b3s + 1, b4 + 1)
+        for g, w in zip(grads["cuda"], grads["cpu"]):
+            assert torch.isfinite(g).all()
+            # float32 sums in another order; a stop that flips moves one pair
+            assert (g.cpu() - w).abs().max() <= 1e-3 * w.abs().max()
+
+
+@pytest.mark.cuda
+class TestCompositeBackwardKernel:
+    CASES = {
+        "ragged": (5, 3, [1, 127, 128, 129, 300, 0, 7, 50, 260, 511, 2, 3, 900, 64, 65],
+                   (0.1, 0.99)),
+        "deep_opaque": (4, 4, "deep", (0.3, 0.99)),
+        "deep_translucent": (4, 4, "deep", (0.001, 0.02)),
+        "full_1232x816": (77, 51, "full", (0.1, 0.99)),
+    }
+
+    @staticmethod
+    def _inputs(case):
+        rng = np.random.default_rng(4)
+        nx, ny, counts, opacity = TestCompositeBackwardKernel.CASES[case]
+        if counts == "deep":
+            counts = rng.integers(2000, 2600, nx * ny)
+        elif counts == "full":
+            counts = rng.poisson(119, nx * ny)
+        rec, starts, counts_t = _records(counts, nx, ny, opacity=opacity)
+        bg = torch.tensor([0.1, 0.5, 0.9], device="cuda")
+        return rec, starts, counts_t, nx, ny, bg
+
+    @pytest.mark.parametrize("case", list(CASES))
+    def test_store_keeps_out_and_matches_plain(self, case):
+        """B3 with the store: ``out`` bitwise equal to the call without it,
+        and the stored transmittance equal to the plain version's on every
+        lane a pixel reaches (1e-5 relative: a serial product against a
+        cumulative one)."""
+        _need_card()
+        rec, starts, counts, nx, ny, bg = self._inputs(case)
+        before = tpt.pallas_composite_fwd.store_launches
+        out, tex = tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg, store_t=True)
+        torch.cuda.synchronize()
+        assert tpt.pallas_composite_fwd.store_launches == before + 1
+        assert torch.equal(out, tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg))
+        assert tex.shape == (rec.shape[1] // 128, 256, 128)
+        walk = tpt._SegmentWalk(rec, starts, counts, nx, ny)
+        for k, c in enumerate(walk):
+            got = tex[walk.starts[c.act] // 128 + k]
+            err = torch.where(c.reached, (got - c.texcl).abs() / c.texcl.clamp_min(1e-4),
+                              torch.zeros((), device="cuda"))
+            assert err.max().item() <= 1e-5
+
+    @pytest.mark.parametrize("case", list(CASES))
+    def test_kernel_matches_plain_and_is_deterministic(self, case):
+        """B4 replay against its plain version on the kernel's own forward
+        output: each gradient row within 1e-4 of the row's largest
+        magnitude, with at most a 1e-5 share of the real lanes off by more
+        than 1e-5 of it (float32 sums in another order; a stop that flips at
+        T_EPS moves one pair's gradient, one faulty tile moves hundreds).
+        Stored against replay and a second launch: bitwise."""
+        _need_card()
+        rec, starts, counts, nx, ny, bg = self._inputs(case)
+        out, tex = tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg, store_t=True)
+        dout = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+        before = tpt.pallas_composite_bwd.launches
+        replay = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
+        stored = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout,
+                                          aligned=True, texcl=tex)
+        again = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
+        torch.cuda.synchronize()
+        assert tpt.pallas_composite_bwd.launches == before + 3
+        assert torch.equal(replay, stored) and torch.equal(replay, again)
+        want = tpt.composite_bwd_plain(rec, starts, counts, nx, ny, out, dout)
+        assert torch.isfinite(replay).all() and not replay[9:].any()
+        scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+        err = (replay - want).abs() / scale
+        assert err[:9].max().item() <= 1e-4
+        assert (err[:9] > 1e-5).float().mean().item() <= 1e-5
+
+    def test_train_step_on_card_matches_cpu(self):
+        """One ``train_step`` through B5, B3 (store) and B4 on the card
+        against the same step on the CPU (plain versions): losses to 1e-5
+        relative, Adam's first moments (0.1 of the gradient) to 1e-3 of
+        their largest magnitude."""
+        _need_card()
+        from sixdgs_torch.scene.cameras import make_synthetic_camera
+        from sixdgs_torch.scene.gaussians import from_arrays
+        from sixdgs_torch.train import gs_trainer as gs
+        from sixdgs_torch.utils.config import OptimizationConfig
+
+        rng = np.random.default_rng(5)
+        n, W, H = 300, 50, 35
+        arrays = {
+            "xyz": (rng.normal(size=(n, 3)) * [1.0, 0.8, 0.6] + [0, 0, 4]).astype(np.float32),
+            "features_dc": (rng.normal(size=(n, 1, 3)) * 0.5).astype(np.float32),
+            "features_rest": (rng.normal(size=(n, 15, 3)) * 0.1).astype(np.float32),
+            "opacity": rng.uniform(-2.0, 3.0, size=(n, 1)).astype(np.float32),
+            "scaling": rng.uniform(-3.5, -2.0, size=(n, 3)).astype(np.float32),
+            "rotation": rng.normal(size=(n, 4)).astype(np.float32),
+        }
+        cam = make_synthetic_camera(W, H, 0.9, 0.7, np.eye(3), np.zeros(3),
+                                    image=rng.uniform(size=(3, H, W)).astype(np.float32))
+        lrs = gs.lr_dict(OptimizationConfig(), 4.0, 1)
+        res = {}
+        counters = (tpt._align_compact, tpt.pallas_composite_bwd)
+        before = [c.launches for c in counters] + [tpt.pallas_composite_fwd.store_launches]
+        for d in ("cpu", "cuda"):
+            state = gs.init_train_state(from_arrays(arrays, 3, capacity=512, device=d))
+            res[d] = gs.train_step(state, gs.camera_arrays(cam, d, with_image=True),
+                                   torch.full((3,), 0.2, device=d), lrs, width=W, height=H,
+                                   sh_degree=3)
+        torch.cuda.synchronize()
+        after = [c.launches for c in counters] + [tpt.pallas_composite_fwd.store_launches]
+        assert after == [b + 1 for b in before]
+        (cs, cm), (gs_state, gm) = res["cpu"], res["cuda"]
+        assert set(cm) == set(gm) and int(gm["binning_grad_dropped"]) == 0
+        for k in ("loss", "l1", "psnr"):
+            assert abs(float(gm[k]) - float(cm[k])) <= 1e-5 * abs(float(cm[k]))
+        for k in cs.adam.m:
+            w = cs.adam.m[k]
+            assert (gs_state.adam.m[k].cpu() - w).abs().max() <= 1e-3 * w.abs().max(), k
+        assert torch.equal(gs_state.denom.cpu(), cs.denom)
+        assert torch.equal(gs_state.max_radii2d.cpu(), cs.max_radii2d)

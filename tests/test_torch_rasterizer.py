@@ -49,6 +49,7 @@ from sixdgs_torch.scene import cameras as tscam
 from sixdgs_torch.scene import gaussians as tg
 from sixdgs_torch.scene import structures as tstruct
 from sixdgs_torch.train import gs_trainer as ttrain
+from sixdgs_torch.utils import config as tconfig
 
 IMG_ATOL = 3e-5
 
@@ -506,8 +507,9 @@ class TestCompositeForward:
         # every pixel evaluates at most its segment; the opaque run stops
         # tile 4 long before its 300 pairs
         assert 0 < contribs < evals < 256 * int(counts.sum())
-        with pytest.raises(NotImplementedError, match="store_t"):
-            tpt.pallas_composite_fwd(_t(rec), _t(starts), _t(counts), 3, 2,
+        # the transmittance store needs the aligned layout
+        with pytest.raises(ValueError, match="aligned"):
+            tpt.pallas_composite_fwd(_t(rec), _t(starts + 1), _t(counts), 3, 2,
                                      torch.zeros(3), store_t=True)
         with pytest.raises(ValueError, match="records"):
             tpt.pallas_composite_fwd(_t(rec[:9]), _t(starts), _t(counts), 3, 2,
@@ -620,18 +622,33 @@ class TestRasterizePallas:
         _close(got, want, atol=IMG_ATOL, rtol=0)
 
     def test_refuses_inputs_that_require_grad(self):
+        """Since the backward kernel was ported nothing is refused for
+        requiring grad: every differentiable field of the projection gets a
+        finite gradient of its own shape, the background gets none, and a
+        call under no_grad stays off the graph. ``"tiled"`` is the
+        rasterizer that is still refused."""
         jp = _jax_proj(50, 32, 32, 0)
         tp = _to_torch_proj(jp)
-        for field in ("means2d", "colors", "opacities"):
-            bad = tp._replace(**{field: getattr(tp, field).clone().requires_grad_()})
-            with pytest.raises(RuntimeError, match="forward-only"):
-                tpt.rasterize_pallas(bad, 32, 32, torch.zeros(3))
-        with pytest.raises(RuntimeError, match="forward-only"):
-            tpt.rasterize_pallas(tp, 32, 32, torch.zeros(3, requires_grad=True))
+        for field in ("means2d", "conics", "colors", "opacities"):
+            src = getattr(tp, field).clone().requires_grad_()
+            bg = torch.zeros(3, requires_grad=True)
+            img = tpt.rasterize_pallas(tp._replace(**{field: src}), 32, 32, bg)
+            assert img.requires_grad
+            g, g_bg = torch.autograd.grad(img.square().sum(), [src, bg], allow_unused=True)
+            assert g.shape == src.shape and torch.isfinite(g).all() and g.abs().max() > 0
+            assert g_bg is None
         with torch.no_grad():
             src = tp.colors.clone().requires_grad_()
             ok = tpt.rasterize_pallas(tp._replace(colors=src * 1.0), 32, 32, torch.zeros(3))
-        assert ok.shape == (3, 32, 32)
+        assert ok.shape == (3, 32, 32) and not ok.requires_grad
+        tscene = tg.from_arrays(_render_scene(n=20), max_sh_degree=3, capacity=32,
+                                device="cpu")
+        state = ttrain.init_train_state(tscene)
+        tc = tscam.make_synthetic_camera(16, 16, 0.9, 0.9, np.eye(3), np.zeros(3))
+        with pytest.raises(ValueError, match="rasterizer"):
+            ttrain.train_step(state, ttrain.camera_arrays(tc, "cpu", with_image=True),
+                              torch.zeros(3), ttrain.lr_dict(tconfig.OptimizationConfig(), 1.0, 1),
+                              width=16, height=16, sh_degree=0, rasterizer="tiled")
 
 
 # ------------------------------------------------------------ render_eval
@@ -686,8 +703,10 @@ class TestRenderEval:
             ttrain.render_eval(tscene, tc, np.zeros(3), 3, rasterizer="tiled")
         jc = jscam.make_synthetic_camera(16, 16, 0.9, 0.9, np.eye(3), np.zeros(3))
         ta, ja = ttrain.camera_arrays(tc, "cpu"), jtrain.camera_arrays(jc)
-        # the port's render inputs leave the ground-truth image on the host
-        assert set(ta._fields) == set(ja._fields) - {"gt_image"}
+        # a render leaves the ground-truth image on the host, a training
+        # step stages it
+        assert ta._fields == ja._fields and ta.gt_image is None
+        ta = ttrain.camera_arrays(tc, "cpu", with_image=True)
         for f in ta._fields:
             np.testing.assert_array_equal(_np(getattr(ta, f)), np.asarray(getattr(ja, f)))
         assert ttrain.DEFAULT_TIERS == jtrain.DEFAULT_TIERS
