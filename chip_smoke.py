@@ -11,7 +11,8 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
   2. hold each kernel against its plain PyTorch version on the card: B1
      and B2 at the pose paths' shapes (P=256, d=384, N in {32768, 131072},
      all three precision modes, a partial patch mask and a padded tail of
-     invalid rays, plus B2 with every ray invalid); B5 on a truncated
+     invalid rays, plus B2 with every ray invalid, and B2 launched twice
+     on the same inputs bitwise equal in each mode); B5 on a truncated
      1232x816 layout and on all-empty tiles (equal); B3 on 64 tiles of
      2,000-2,600 pairs each, opaque (tiles exit early) and translucent, and
      on the same tiles B3 with the transmittance store (``out`` bitwise as
@@ -62,9 +63,11 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
   7. timing with CUDA events (each kernel, its plain version, its bound),
      per-image eval_image and render_eval time, the 3DGS step time, and
      profiles of one image, one id-module training step, one render and
-     one 3DGS training step. B1's ``launches`` counts calls of its wrapper,
-     each three CUDA kernels; B2's, each eight; B5's, B3's and B4's, one
-     each.
+     one 3DGS training step, with each CUDA kernel's share of one B2 call
+     and B1's and B2's share of the id-module step's device time, and the
+     registers and shared memory of B2's kernels (ptxas). B1's
+     ``launches`` counts calls of its wrapper, each three CUDA kernels;
+     B2's, each eleven; B5's, B3's and B4's, one each.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -98,16 +101,24 @@ P, D = 256, 384
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+# bf16 tensor-core products per operand pair that each mode's accuracy
+# needs (mma_pieces.cuh): the attention kernels' bounds take the bf16 rate
+# divided by these
+PRODUCTS = {"bf16": 1, "bf16_split3": 3, "f32": 6}
 # kernel vs plain: f32-class modes differ only in summation order; bf16
 # rounds K inside the kernel and in the plain version at the same points,
 # but an f32 K that lands on a bf16 rounding boundary can round apart
 TOL = {"f32": 1e-5, "bf16_split3": 1e-5, "bf16": 1e-3}
 STAT_TOL = {"f32": 1e-5, "bf16_split3": 1e-5, "bf16": 1e-2}
-# B2 vs plain, each gradient against its max |plain|: sums over up to 131k
-# rays in another order than cuBLAS; in bf16 a dlog or dk on a rounding
-# boundary rounds apart. dbk is zero in exact arithmetic (a shift of every
-# logit of a patch by q_p . bk leaves its softmax unchanged), so it is held
-# against max_col sum_j |dk_j| instead
+# B2 vs plain, each gradient against its max |plain|: both take the same
+# reassociated order (q'' = q Wk^T, A = dlog feats), but the kernel sums the
+# logits, dfeats and A over 16-wide mma k-steps of bf16 pieces in f32 (split3
+# drops the lo.lo products, ~2^-18 relative), then A and c over its CTAs'
+# partials in CTA order, and the epilogue in k order, where cuBLAS sums in
+# its own order; in bf16 a dlog on a rounding boundary rounds apart. dbk is
+# zero in exact arithmetic (a shift of every logit of a patch by q_p . bk
+# leaves its softmax unchanged), so it is held against max_col sum_j |dk_j|
+# instead
 B2_TOL = {"f32": 1e-4, "bf16_split3": 1e-4, "bf16": 1e-2}
 # full pipeline, fused vs plain scorer: both f32, but the q/k projections,
 # logits and softmax sums run in different orders (cuBLAS vs the kernel)
@@ -234,14 +245,20 @@ def b1_flops(n: int) -> int:
     return 2 * (n * D * D + P * n * D)
 
 
+def b1_flops_reassociated(n: int) -> int:
+    """Flops of the same function without K: q'' = q Wk^T, then the logits
+    (q'' feats^T + q bk) / sqrt(d)."""
+    return 2 * (P * n * D + P * D * D)
+
+
 def b1_bound(n: int, mode: str):
-    """(bound_ms, bound_by) of one B1 call: the function's flops at the peak
-    rate of its operand type (bf16 tensor cores in "bf16", f32 FMA in the
-    f32-class modes), against each input read once and each output written
-    once."""
-    rate = BF16_FLOPS_PER_S if mode == "bf16" else F32_FLOPS_PER_S
+    """(bound_ms, bound_by) of one B1 call, on B2's terms: the reassociated
+    flops at the bf16 tensor-core rate divided by the products the mode's
+    accuracy needs (PRODUCTS), against each input read once and each output
+    written once."""
+    rate = BF16_FLOPS_PER_S / PRODUCTS[mode]
     nbytes = 4 * (P * D + n * D + D * D + D + P + n + n + 2 * P)
-    t_ops, t_bytes = b1_flops(n) / rate, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = b1_flops_reassociated(n) / rate, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -273,16 +290,30 @@ def phase_kernels(ak, gen):
 
 
 def b2_flops(n: int) -> int:
-    """Flops the backward needs: K, dfeats = dk Wk^T and dWk = feats^T dk
-    (3 N d^2), the logits, dk = dlog^T q and dq = dlog K (3 P N d)."""
+    """Flops the backward needs, reassociated so that K is never formed: the
+    logits, dfeats = dlog^T q'' and A = dlog feats (3 P N d), q'' = q Wk^T,
+    dq = A Wk and dWk = A^T q (3 P d^2)."""
+    return 2 * (3 * P * n * D + 3 * P * D * D)
+
+
+def b2_executed_flops(n: int) -> int:
+    """Flops the kernel executes: the logits twice (c pass, gradient pass),
+    dfeats and A on the tensor cores (each times the mode's products), the
+    prologue and epilogue on the CUDA cores."""
+    return 2 * (4 * P * n * D + 3 * P * D * D)
+
+
+def b2_flops_k_path(n: int) -> int:
+    """The count of the earlier design, which formed K: 2 (3 N d^2 + 3 P N d)."""
     return 2 * (3 * n * D * D + 3 * P * n * D)
 
 
 def b2_bound(n: int, mode: str):
-    """(bound_ms, bound_by) of one B2 call, as b1_bound: inputs q, feats,
-    Wk, bk, pmask, valid, m, s, g read once, dq, dfeats, dWk, dbk written
-    once."""
-    rate = BF16_FLOPS_PER_S if mode == "bf16" else F32_FLOPS_PER_S
+    """(bound_ms, bound_by) of one B2 call: b2_flops at the bf16 tensor-core
+    rate divided by the products the mode's accuracy needs (PRODUCTS),
+    against inputs q, feats, Wk, bk, pmask, valid, m, s, g read once and dq,
+    dfeats, dWk, dbk written once."""
+    rate = BF16_FLOPS_PER_S / PRODUCTS[mode]
     nbytes = 4 * (2 * P * D + 2 * n * D + 2 * D * D + 2 * D + 3 * P + 2 * n)
     t_ops, t_bytes = b2_flops(n) / rate, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
@@ -300,12 +331,17 @@ def dbk_scale(ins, m, s, g) -> float:
 
 
 def b2_case(ak, ins, g, mode):
-    """B2 on B1's residuals against its plain version; returns the max abs
+    """B2 on B1's residuals against its plain version, and a second launch
+    on the same inputs bitwise equal to the first; returns the max abs
     error over the four gradients."""
     _, m, s = ak.attention_scores_fwd(*ins, mode=mode)
     out = ak.attention_scores_bwd(*ins, m, s, g, mode=mode)
+    again = ak.attention_scores_bwd(*ins, m, s, g, mode=mode)
     ref = ak.attention_scores_bwd_plain(*ins, m, s, g, mode=mode)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"B2 at n={ins[1].shape[0]} {mode}: a second launch on the "
+                             f"same inputs differs")
     worst, msgs = 0.0, []
     for name, a, b in zip(("dq", "dfeats", "dwk", "dbk"), out, ref):
         if a.shape != b.shape or not torch.isfinite(a).all():
@@ -317,7 +353,20 @@ def b2_case(ak, ins, g, mode):
             raise AssertionError(f"B2 {name} off at n={ins[1].shape[0]} {mode}: "
                                  f"{err} > {B2_TOL[mode]} * {scale}")
         worst = max(worst, err)
-    return worst, out, " ".join(msgs)
+    return worst, out, " ".join(msgs + ["second launch bitwise equal"])
+
+
+def softmax_mass_error(ins, mode) -> float:
+    """max_p |sum_j P_pj - 1| with P from the reassociated logits (as B2
+    forms them) and m, s from B1 (which forms K): the two paths round
+    apart."""
+    from sixdgs_torch.ops import attention_kernel as ak
+
+    q, feats, wk, bk, pmask, valid = ins
+    _, m, s = ak.attention_scores_fwd(*ins, mode=mode)
+    logits = (ak._dot(q @ wk.T, feats.T, mode) + (q @ bk)[:, None]) / math.sqrt(D)
+    logits = torch.where(valid[None] > 0, logits, torch.full_like(logits, ak.NEG))
+    return (torch.exp(logits - m) / s).sum(1).sub(1).abs().max().item()
 
 
 def phase_b2(ak, gen):
@@ -329,7 +378,8 @@ def phase_b2(ak, gen):
         g = torch.randn(n, generator=gen, device="cuda")
         for mode in ak.MODES:
             err, _, msg = b2_case(ak, ins, g, mode)
-            log(f"B2 n={n} mode={mode}: max_abs_err={err:.3e} (err/scale: {msg})")
+            log(f"B2 n={n} mode={mode}: max_abs_err={err:.3e} (err/scale: {msg}); "
+                f"max_p |sum_j P_pj - 1| {softmax_mass_error(ins, mode):.2e}")
             if n == KERNEL_NS[0] and mode == "bf16_split3":
                 main_err = err
     # every ray invalid: P = 1/N, and the unmasked dlog gives invalid rays
@@ -979,9 +1029,31 @@ def phase_gs_training(ak, pt, arrays, render, rng):
             "n_steps": n_steps}
 
 
-def profile_run(label: str, run, unprofiled_ms: float) -> None:
+def ptxas_report(build, name: str) -> list:
+    """Registers, spills and static shared memory of each kernel of
+    csrc/<name>.cu, from the ptxas report that the build keeps."""
+    import re
+
+    lines = build._lib_path(name).with_suffix(".log").read_text().splitlines()
+    out, fn, spill = [], None, ""
+    for line in lines:
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            m = re.search(r"\d(b\d_[a-z_]+)(?:ILi(\d)EE|E)", entry.group(1))
+            fn = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else entry.group(1)
+        elif "spill" in line and fn:
+            spill = line.strip()
+        elif "Used" in line and fn:
+            out.append(f"{fn}: {line.split('Used', 1)[1].strip()} ({spill})")
+            fn = None
+    return out
+
+
+def profile_run(label: str, run, unprofiled_ms: float, shares: bool = False) -> dict:
     """Device time by kernel over one call of ``run`` (torch.profiler), and
-    the device's busy share of the unprofiled time of one call."""
+    the device's busy share of the unprofiled time of one call; with
+    ``shares``, each kernel's share of the device time. Returns the device
+    ms of the whole call and of B1's and B2's kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -999,7 +1071,11 @@ def profile_run(label: str, run, unprofiled_ms: float) -> None:
     log(f"profile of one {label}: {sum(r.count for r in rows)} kernels, device busy "
         f"{busy_ms:.3f} ms = {100 * busy_ms / unprofiled_ms:.1f}% of {unprofiled_ms:.3f} ms")
     for r in rows[:15]:
-        log(f"  {r.self_device_time_total / 1e3:8.3f} ms x{r.count:<4d} {r.key[:100]}")
+        share = f" {100 * r.self_device_time_total / 1e3 / busy_ms:5.1f}%" if shares else ""
+        log(f"  {r.self_device_time_total / 1e3:8.3f} ms{share} x{r.count:<4d} {r.key[:100]}")
+    by = {k: sum(r.self_device_time_total for r in rows if k in r.key) / 1e3
+          for k in ("b1_", "b2_")}
+    return {"busy_ms": busy_ms, "b1_ms": by["b1_"], "b2_ms": by["b2_"]}
 
 
 def main() -> int:
@@ -1129,7 +1205,9 @@ def main() -> int:
     bound_ms, bound_by = b1_bound(n, "bf16_split3")
     # the kernel recomputes K and the logits in its second pass, so it
     # executes twice the flops the bound counts (bench.py's formula)
-    log(f"B1 n={n}: needed {b1_flops(n) / 1e9:.2f} GFLOP, executed "
+    log(f"B1 n={n}: needed {b1_flops(n) / 1e9:.2f} GFLOP with K, "
+        f"{b1_flops_reassociated(n) / 1e9:.2f} without (the bound's count, at "
+        f"{BF16_FLOPS_PER_S / PRODUCTS['bf16_split3'] / 1e12:.1f} TFLOP/s), executed "
         f"{2 * b1_flops(n) / 1e9:.2f} GFLOP; split3 kernel at "
         f"{2 * b1_flops(n) / ms / 1e9:.2f} TFLOP/s executed, "
         f"{bound_ms / ms:.3f} of its bound")
@@ -1149,10 +1227,17 @@ def main() -> int:
     b2_ms = cuda_ms(lambda: ak.attention_scores_bwd(*ins, m, s, g))
     b2_plain_ms = cuda_ms(lambda: ak.attention_scores_bwd_plain(*ins, m, s, g))
     b2_bound_ms, b2_bound_by = b2_bound(n, "bf16_split3")
-    log(f"B2 n={n}: needed {b2_flops(n) / 1e9:.2f} GFLOP, executed "
-        f"{2 * (4 * n * D * D + 4 * P * n * D) / 1e9:.2f} GFLOP; split3 kernel at "
+    log(f"B2 n={n}: needed {b2_flops(n) / 1e9:.2f} GFLOP reassociated (the earlier "
+        f"design's count with K: {b2_flops_k_path(n) / 1e9:.2f}), executed "
+        f"{b2_executed_flops(n) / 1e9:.2f} GFLOP ({2 * 4 * P * n * D / 1e9:.2f} of them on "
+        f"the tensor cores, times 3 products in split3); split3 kernel at "
         f"{b2_flops(n) / b2_ms / 1e9:.2f} TFLOP/s needed, {b2_bound_ms / b2_ms:.3f} "
-        f"of its bound")
+        f"of its bound ({b2_bound_ms:.4f} ms, {b2_bound_by})")
+    profile_run("B2 call (n=32768, split3)", lambda: ak.attention_scores_bwd(*ins, m, s, g),
+                b2_ms, shares=True)
+    log("B2 kernels (ptxas; dynamic shared memory of b2_c and b2_grad: NP x 50,176 bytes "
+        "for NP bf16 pieces, <1> bf16, <2> split3, <3> f32): " + "; ".join(ptxas_report(
+            _build, "attention_scores_bwd")))
     times = {}
     for nn in KERNEL_NS:
         big = ins if nn == n else b1_inputs(nn, gen)
@@ -1186,10 +1271,20 @@ def main() -> int:
     for label in ("fused", "plain"):
         trainer = trainers[label]
         nxt = trainer.optimizer.state[next(trainer.id_module.parameters())]["step"]
-        profile_run(f"{label} training step",
-                    lambda: trainer.run(n_iterations=nxt + 1, start_iteration=nxt,
-                                        validate_every=0),
-                    train_timing[f"{label}_step_ms"])
+        prof = profile_run(f"{label} training step",
+                           lambda: trainer.run(n_iterations=nxt + 1, start_iteration=nxt,
+                                               validate_every=0),
+                           train_timing[f"{label}_step_ms"])
+        if label == "fused":
+            busy = prof["busy_ms"]
+            train_timing["fused_device_ms"] = busy
+            train_timing["fused_busy_share"] = busy / train_timing["fused_step_ms"]
+            train_timing["b1_share_of_device"] = prof["b1_ms"] / busy
+            train_timing["b2_share_of_device"] = prof["b2_ms"] / busy
+            log(f"fused id-module step: device {busy:.3f} ms of {train_timing['fused_step_ms']:.3f}"
+                f" ms ({100 * busy / train_timing['fused_step_ms']:.1f}% busy); B1 "
+                f"{prof['b1_ms']:.3f} ms ({100 * prof['b1_ms'] / busy:.1f}%), B2 "
+                f"{prof['b2_ms']:.3f} ms ({100 * prof['b2_ms'] / busy:.1f}%) of the device time")
     from sixdgs_torch.train.gs_trainer import render_eval
 
     cams, bg, lay = render["cams"], render["bg"], render["lay"]
@@ -1273,7 +1368,8 @@ def main() -> int:
         # no single PyTorch call computes the masked softmax column sums
         "library_ms": None,
     }, {
-        "name": "B2 attention_scores_bwd (_bwd_kernel; 8 CUDA kernels per launch)",
+        "name": "B2 attention_scores_bwd (_bwd_kernel; 11 CUDA kernels per launch, "
+                "reassociated, mma.sync in bf16 pieces)",
         "route": "cuda",
         "source": "sixdgs_torch/csrc/attention_scores_bwd.cu",
         "replaces": "sixdgs_tpu/ops/attention_kernel.py:136",

@@ -4,356 +4,551 @@
 // (launched by _fused_scores_bwd), the custom-VJP backward of the forward in
 // attention_scores.cu (B1). For q [P, D], ray features [N, D], Wk [D, D]
 // (in, out), bk [D], the forward's per-patch residuals m, s [P] and the
-// score cotangent g [N] it computes
+// score cotangent g [N] it computes dq, dfeats, dWk and dbk, reassociated so
+// that K = feats Wk + bk is never formed:
 //
-//     K        = feats @ Wk + bk,  logits = q K^T / sqrt(D) (invalid -> NEG)
+//     q''      = q Wk^T [P, D],  qb = q bk [P]                  (prologue)
+//     logits   = (q'' feats^T + qb) / sqrt(D) (invalid -> NEG)
 //     P_pj     = exp(logits_pj - m_p) / s_p
-//     c_p      = sum_j P_pj g_j
+//     c_p      = sum_j P_pj g_j                                 (c pass)
 //     dlog_pj  = pmask_p P_pj (g_j - c_p) / sqrt(D)
-//     dk       = dlog^T q            dfeats = dk Wk^T
-//     dq       = dlog K              dWk    = feats^T dk,  dbk = sum_j dk_j
+//     dfeats   = dlog^T q''     (= dk Wk^T with dk = dlog^T q)  (gradient pass)
+//     A        = dlog feats,  r = rowsum(dlog)                  (gradient pass)
+//     dq = A Wk + r bk^T,  dWk = A^T q,  dbk = q^T r            (epilogue)
 //
 // without ever writing a [P, N] logits, probability or dlog array to device
 // memory. As in the TPU kernel, dlog is not masked by ray validity: with
 // every ray invalid (m_p = NEG) each P_pj is 1/N and invalid rays get a
-// nonzero dfeats.
+// nonzero dfeats. The ray stream carries three P N D products (the logits,
+// dfeats and A; the logits twice), no N D^2 product.
 //
-// The TPU kernel walks a sequential grid and carries c_p and the dq / dWk /
-// dbk sums in VMEM. Blocks on the card run in no order, so every reduction
-// across rays goes through per-CTA partials and a fixed-order combine (no
-// float atomics: the result is deterministic):
-//   1. b2_c:        one CTA per 32-ray block recomputes K and the logits
-//                   (attention_tiles.cuh) and writes partial c to [P, nb];
-//   2. b2_row_sums: c_p, one CTA per patch;
-//   3. b2_grad:     at most 132 CTAs, each walking a contiguous run of ray
-//                   blocks: recompute K and the logits, form dlog [P, 32]
-//                   in shared memory, write dk rows into the dfeats buffer,
-//                   and add dlog K into the CTA's own [P, D] dq partial in
-//                   device memory (it does not fit in shared memory);
-//   4. b2_dwk:      dWk = feats^T dk as a split-K product: 128 x 128 output
-//                   tiles x 16 ray splits, each writing its own partial;
-//   5. b2_sum_parts: dq, dWk and dbk, summing the partials in order;
-//   6. b2_dfeats:   dfeats = dk Wk^T, in place over the dk rows.
-// Scratch (the wrapper allocates it): c partials P * ceil(N / 32) floats,
-// dq partials C * P * D and dbk partials C * D for the C <= 132 b2_grad
-// CTAs (128 at both sizes below), dWk partials 16 * D * D: 61.0 MB at
-// N = 32,768 and 64.2 MB at N = 131,072 (D = 384).
+// CUDA kernels of one launch, in order (no float atomics anywhere: every
+// cross-CTA sum is taken in a fixed order, so two launches agree bitwise):
+//   1. b2_gemm_tile x2: q'' and qb, f32 FMA on the CUDA cores;
+//   2. b2_pack_q:       q'' split into bf16 pieces (mma_pieces.cuh), stored
+//                       in mma fragment order twice: as the A operand of the
+//                       logits and as the B operand of dfeats; every CTA
+//                       then reads its fragments from L2 with one 16- or
+//                       8-byte load per lane;
+//   3. b2_c:            at most 132 CTAs, each walking a contiguous run of
+//                       64-ray blocks: the block's feats split once into
+//                       bf16 pieces in shared memory, logits [256, 64] by
+//                       mma.sync (B operands by ldmatrix), c partials;
+//   4. b2_sum_parts:    c, summing the CTA partials in order;
+//   5. b2_grad:         the same CTAs and runs: logits again, dlog in
+//                       registers, A += dlog feats (dlog's A fragments
+//                       straight from the logits' accumulators, feats' B
+//                       fragments by transposed ldmatrix) into the CTA's
+//                       [P, D] partial in device memory, 32 columns at a
+//                       time; then the dlog pieces over the feats pieces
+//                       and dfeats = dlog^T q'' (transposed ldmatrix);
+//   6. b2_sum_parts x2: A and r, summing the CTA partials in order;
+//   7. b2_gemm_tile x3: dq, dWk and dbk, f32 FMA on the CUDA cores.
+// The feats tile goes through registers into shared memory (split once per
+// CTA) instead of cp.async: splitting the f32 tile inside every warp cost
+// more than the copy's overlap saved (0.665-0.680 against 0.690-0.712 ms at
+// N = 32,768 in split3 on an H100 SXM at 700 W). Shared memory: the block's feats pieces,
+// 50,176 bytes per piece (the dlog pieces reuse it). Scratch (the wrapper
+// allocates it): q'' and qb, fragment copies of q'' (1.18 MB), c, A and r
+// partials for C <= 132 CTAs (128 at both sizes below), A, c and r:
+// 52.6 MB at N = 32,768 and at N = 131,072 (D = 384).
 //
-// Bound: the function needs 2 (3 N D^2 + 3 P N D) flops (K, dfeats, dWk and
-// the logits, dk, dq): 48.3 GFLOP at N = 32,768, 0.721 ms at the 67 TFLOP/s
-// f32 peak, against ~0.1 GB of traffic, so it is bound by compute. This
-// kernel executes 2 (4 N D^2 + 4 P N D), 64.4 GFLOP at N = 32,768, because
-// b2_c and b2_grad each recompute K and the logits, as the TPU kernel's two
-// passes do.
-// This first version runs plain f32 FMA on the CUDA cores with shared-memory
-// tiles; tensor cores (wgmma) and TMA are left for a later version.
+// Bound: the function needs 2 (3 P N D + 3 P D^2) flops (the logits,
+// dfeats, A; q'', dq, dWk): 19.56 GFLOP at N = 32,768. At the bf16
+// tensor-core rate divided by the products its accuracy needs (1, 3 or 6
+// per operand pair) it is bound by operations (its ~0.1 GB of traffic
+// takes less). This kernel executes 2 (4 P N D) on the tensor cores, times
+// the products of the mode, because the gradient pass recomputes the logits.
 //
-// Precision: "f32" and "bf16_split3" run as plain f32 FMA. "bf16" rounds
-// every matmul operand (feats, Wk, q, K, dlog, dk) to bf16 at the points
-// where the TPU kernel's _dot does, and accumulates in f32. No TF32.
+// Precision (NP pieces per operand, mma_pieces.cuh): "bf16" rounds q'',
+// feats and dlog to bf16 once; "bf16_split3" (the default) runs the TPU
+// kernel's hi/lo split, 3 products; "f32" three pieces, 6 products. The
+// prologue and epilogue products are f32 FMA in every mode.
 
-#include "attention_tiles.cuh"
+#include "mma_pieces.cuh"
+
+#include <math.h>
 
 namespace {
 
-using namespace attn;
+constexpr int P = 256;         // image patches (16 x 16 DINOv2 grid)
+constexpr int D = 384;         // DINOv2-S width
+constexpr int BN = 64;         // rays per block
+constexpr int THREADS = 256;   // 8 warps; warp w owns patches 32w..32w+31
+constexpr int NCTA = 132;      // most CTAs of the ray passes (one per SM)
+constexpr int FS = D + 8;      // row stride (bf16) of a feats piece [BN][FS]
+constexpr int LS = BN + 8;     // row stride (bf16) of a dlog piece [P][LS]
+constexpr int KT = D / 16;     // k tiles of the logits (24)
+constexpr int PT = P / 16;     // patch tiles (16)
+constexpr int NT = D / 8;      // column tiles of dfeats and A (48)
+constexpr float NEG = -9e15f;  // the TPU kernel's mask value (not -inf)
+static_assert(D % 64 == 0 && P == 32 * (THREADS / 32), "warp tiling");
+static_assert(P * LS <= BN * FS, "a dlog piece fits where a feats piece was");
 
-constexpr int NCH = 132;     // most b2_grad CTAs (one per H100 SM)
-constexpr int DLS = BN + 1;  // padded row stride of dlog [P][DLS] in shared memory
-constexpr int WT = 128;      // b2_dwk output tile (WT x WT per CTA)
-constexpr int WSPLIT = 16;   // ray splits of the dWk reduction
-
-template <int D>
-constexpr size_t grad_smem_bytes() {
-  return smem_bytes<D>() + sizeof(float) * P * DLS;
+// Shared memory of both ray passes: the block's feats pieces [NP][BN][FS],
+// over which b2_grad later writes the dlog pieces [NP][P][LS].
+template <int NP>
+constexpr size_t smem_bytes() {
+  return sizeof(__nv_bfloat16) * NP * BN * FS;
 }
 
-__host__ __device__ inline int grad_blocks_per_cta(int n) {
+__host__ __device__ inline int blocks_per_cta(int n) {
   const int nb = (n + BN - 1) / BN;
-  return (nb + NCH - 1) / NCH;
+  return (nb + NCTA - 1) / NCTA;
 }
 
-__host__ __device__ inline int grad_ctas(int n) {
+__host__ __device__ inline int n_ctas(int n) {
   const int nb = (n + BN - 1) / BN;
-  const int per = grad_blocks_per_cta(n);
+  const int per = blocks_per_cta(n);
   return (nb + per - 1) / per;
 }
 
-// Partial c_p = sum_j P_pj g_j over the CTA's BN rays -> c_part [P, nb].
-template <int D, bool BF16>
-__global__ void __launch_bounds__(THREADS)
-b2_c(const float* __restrict__ q_t, const float* __restrict__ feats,
-     const float* __restrict__ wk, const float* __restrict__ bk,
-     const float* __restrict__ valid, const float* __restrict__ m_in,
-     const float* __restrict__ s_in, const float* __restrict__ g, int n,
-     float sqrt_d, float* __restrict__ c_part) {
-  extern __shared__ float4 smem4[];
-  float* r1 = reinterpret_cast<float*>(smem4);
-  float* r2 = r1 + region1_floats<D>();
-  const int nb = gridDim.x;
-  const int b = blockIdx.x;
-  const int r0 = b * BN;
-  float acc[4][8];
-  block_logits<D, BF16>(q_t, feats, wk, bk, valid, n, r0, sqrt_d, r1, r2, acc);
-
-  const int tid = threadIdx.x;
-  const int pg = tid / 4;
-  const int rg = tid % 4;
-  float gv[8];
+// Rays [r0, r0 + BN) of feats [n, D] into their bf16 pieces fp [NP][BN][FS],
+// each value split once per CTA; rays past n are zero. Six float4 loads per
+// thread are in flight before the first is split.
+template <int NP>
+__device__ __forceinline__ void stage_feats(const float* __restrict__ feats, int n, int r0,
+                                            __nv_bfloat16* fp) {
+  constexpr int PER = BN * D / 4 / THREADS;  // float4 per thread (24)
+  constexpr int BATCH = 6;
+  static_assert(PER % BATCH == 0, "whole batches");
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int r = r0 + rg * 8 + j;
-    gv[j] = r < n ? g[r] : 0.f;
-  }
+  for (int b0 = 0; b0 < PER; b0 += BATCH) {
+    float4 v[BATCH];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = pg * 4 + i;
-    const float m = m_in[p];
-    const float s = s_in[p];
-    float c = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (r0 + rg * 8 + j < n) c += expf(acc[i][j] - m) / s * gv[j];
+    for (int j = 0; j < BATCH; ++j) {
+      const int idx = threadIdx.x + THREADS * (b0 + j);
+      const int r = idx / (D / 4), c4 = idx % (D / 4);
+      v[j] = r0 + r < n ? reinterpret_cast<const float4*>(feats + (size_t)(r0 + r) * D)[c4]
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
     }
-    c += __shfl_xor_sync(0xffffffffu, c, 1);
-    c += __shfl_xor_sync(0xffffffffu, c, 2);
-    if (rg == 0) c_part[(size_t)p * nb + b] = c;
+#pragma unroll
+    for (int j = 0; j < BATCH; ++j) {
+      const int idx = threadIdx.x + THREADS * (b0 + j);
+      const int r = idx / (D / 4), c4 = idx % (D / 4);
+      uint32_t lo[NP], hi[NP];
+      mma::split2<NP>(v[j].x, v[j].y, lo);
+      mma::split2<NP>(v[j].z, v[j].w, hi);
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        *reinterpret_cast<uint2*>(fp + (i * BN + r) * FS + 4 * c4) = make_uint2(lo[i], hi[i]);
+      }
+    }
   }
 }
 
-// out[row] = sum_b part[row * nb + b], a fixed-order tree, one CTA per row.
-__global__ void __launch_bounds__(THREADS)
-b2_row_sums(const float* __restrict__ part, int nb, float* __restrict__ out) {
-  __shared__ float red[THREADS];
-  const int row = blockIdx.x;
-  const int tid = threadIdx.x;
-  float s = 0.f;
-  for (int b = tid; b < nb; b += THREADS) s += part[(size_t)row * nb + b];
-  red[tid] = s;
-  __syncthreads();
-  for (int w = THREADS / 2; w > 0; w /= 2) {
-    if (tid < w) red[tid] += red[tid + w];
-    __syncthreads();
+// The block's logits [32 patches of warp w][BN rays] in C-fragment order:
+// acc[mi][nj] holds patches 32w + 16mi + g (+8) and rays 8nj + 2t (+1).
+// q'' comes from its packed A fragments qa [NP][PT][KT][32] (uint4), feats
+// from its pieces fp by ldmatrix. Invalid rays and rays past n are NEG.
+template <int NP>
+__device__ __forceinline__ void block_logits(const uint4* __restrict__ qa,
+                                             const __nv_bfloat16* fp, const float (&qb)[4],
+                                             const float* __restrict__ valid, int n, int r0,
+                                             float sqrt_d, float (&acc)[2][8][4]) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int t = lane % 4, mat = lane / 8;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
+    }
   }
-  if (tid == 0) out[row] = red[0];
+  for (int kt = 0; kt < KT; ++kt) {
+    uint32_t a[2][NP][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        const uint4 v = qa[((size_t)(i * PT + 2 * warp + mi) * KT + kt) * 32 + lane];
+        a[mi][i][0] = v.x;
+        a[mi][i][1] = v.y;
+        a[mi][i][2] = v.z;
+        a[mi][i][3] = v.w;
+      }
+    }
+#pragma unroll
+    for (int nj = 0; nj < 8; nj += 2) {
+      // B fragments of ray tiles nj and nj + 1: matrices (rays, k) (rays,
+      // k + 8) (rays + 8, k) (rays + 8, k + 8) of the [ray][d] piece
+      uint32_t b[2][NP][2];
+#pragma unroll
+      for (int i = 0; i < NP; ++i) {
+        uint32_t r[4];
+        mma::ldmatrix_x4(r, fp + (i * BN + 8 * nj + lane % 8 + 8 * (mat / 2)) * FS + 16 * kt +
+                                8 * (mat % 2));
+        b[0][i][0] = r[0];
+        b[0][i][1] = r[1];
+        b[1][i][0] = r[2];
+        b[1][i][1] = r[3];
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        mma::mma_pieces<NP>(acc[mi][nj], a[mi], b[0]);
+        mma::mma_pieces<NP>(acc[mi][nj + 1], a[mi], b[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int nj = 0; nj < 8; ++nj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int r = r0 + 8 * nj + 2 * t + e;
+      const bool ok = r < n && valid[r] > 0.f;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        acc[mi][nj][e] = ok ? (acc[mi][nj][e] + qb[2 * mi]) / sqrt_d : NEG;
+        acc[mi][nj][e + 2] = ok ? (acc[mi][nj][e + 2] + qb[2 * mi + 1]) / sqrt_d : NEG;
+      }
+    }
+  }
 }
 
-// The gradient pass over a contiguous run of ray blocks: dk rows into
-// dk_out [n, D], the CTA's dq partial [P, D] and dbk partial [D].
-template <int D, bool BF16>
-__global__ void __launch_bounds__(THREADS)
-b2_grad(const float* __restrict__ q_t, const float* __restrict__ q,
-        const float* __restrict__ feats, const float* __restrict__ wk,
-        const float* __restrict__ bk, const float* __restrict__ pmask,
-        const float* __restrict__ valid, const float* __restrict__ m_in,
-        const float* __restrict__ s_in, const float* __restrict__ c_in,
-        const float* __restrict__ g, int n, float sqrt_d,
-        float* __restrict__ dk_out, float* __restrict__ dq_part,
-        float* __restrict__ dbk_part) {
-  constexpr int CPT = D / 32;
-  constexpr int QC = 96;  // dq columns per sweep: 8 patches x 12 columns a thread
-  static_assert(D % QC == 0, "dq sweeps cover D");
+// This thread's four patches: 32w + 16mi + g + 8h at index 2mi + h.
+__device__ __forceinline__ int my_patch(int k) {
+  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
+  return 32 * warp + 16 * (k / 2) + g + 8 * (k % 2);
+}
+
+__device__ __forceinline__ void load_rows(const float* __restrict__ src, float (&out)[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) out[k] = src[my_patch(k)];
+}
+
+// Sum of a per-thread row value over the 4 lanes t of its row group, in a
+// fixed order, then one write per row.
+__device__ __forceinline__ void write_rows(const float (&v)[4], float* __restrict__ out) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    float x = v[k];
+    x += __shfl_xor_sync(0xffffffffu, x, 1);
+    x += __shfl_xor_sync(0xffffffffu, x, 2);
+    if (threadIdx.x % 4 == 0) out[my_patch(k)] = x;
+  }
+}
+
+// c partials: c_part [C][P], row p = sum_j P_pj g_j over the CTA's rays.
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+b2_c(const uint4* __restrict__ qa, const float* __restrict__ qb_in,
+     const float* __restrict__ feats, const float* __restrict__ valid,
+     const float* __restrict__ m_in, const float* __restrict__ s_in,
+     const float* __restrict__ g_in, int n, float sqrt_d, float* __restrict__ c_part) {
   extern __shared__ float4 smem4[];
-  float* r1 = reinterpret_cast<float*>(smem4);
-  float* r2 = r1 + region1_floats<D>();
-  float* dl = r2 + region2_floats<D>();
-  const int tid = threadIdx.x;
+  __nv_bfloat16* fp = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const int t = threadIdx.x % 4;
   const int nb = (n + BN - 1) / BN;
-  const int per = grad_blocks_per_cta(n);
+  const int per = blocks_per_cta(n);
   const int b_begin = blockIdx.x * per;
   const int b_end = min(nb, b_begin + per);
-  float* dq = dq_part + (size_t)blockIdx.x * P * D;
-  const float inv_sqrt_d = 1.f / sqrt_d;
-  const int pg = tid / 4, rg = tid % 4;   // logits: 4 patches x 8 rays
-  const int ty = tid / 32, tx = tid % 32; // dk: 4 rays x 12 columns
-  const int qg = tid / 8, cg = tid % 8;   // dq: 8 patches x 12 columns
-
-  float dbk[CPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) dbk[c] = 0.f;
+  float qb[4], m[4], s[4], c[4] = {0.f, 0.f, 0.f, 0.f};
+  load_rows(qb_in, qb);
+  load_rows(m_in, m);
+  load_rows(s_in, s);
 
   for (int b = b_begin; b < b_end; ++b) {
     const int r0 = b * BN;
-    float acc[4][8];
-    block_logits<D, BF16>(q_t, feats, wk, bk, valid, n, r0, sqrt_d, r1, r2, acc);
-
-    // dlog [P][BN] into shared memory; rays past n are zero
+    __syncthreads();  // the last block's reads of fp are done
+    stage_feats<NP>(feats, n, r0, fp);
+    __syncthreads();
+    float acc[2][8][4];
+    block_logits<NP>(qa, fp, qb, valid, n, r0, sqrt_d, acc);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int p = pg * 4 + i;
-      const float m = m_in[p];
-      const float s = s_in[p];
-      const float c = c_in[p];
-      const float pm = pmask[p];
+    for (int nj = 0; nj < 8; ++nj) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int r = r0 + rg * 8 + j;
-        float v = 0.f;
-        if (r < n) v = pm * (expf(acc[i][j] - m) / s) * (g[r] - c) * inv_sqrt_d;
-        dl[p * DLS + rg * 8 + j] = rnd<BF16>(v);
-      }
-    }
-
-    // dk [BN][D] = dlog^T q, q rows staged [KT][D] per tile
-    float dk[4][CPT];
+      for (int e = 0; e < 2; ++e) {
+        const int r = r0 + 8 * nj + 2 * t + e;
+        if (r < n) {
+          const float gv = g_in[r];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) dk[i][c] = 0.f;
-    }
-    for (int p0 = 0; p0 < P; p0 += KT) {
-      for (int idx = tid; idx < KT * D / 4; idx += THREADS) {
-        float4 v = reinterpret_cast<const float4*>(q + (size_t)p0 * D)[idx];
-        v.x = rnd<BF16>(v.x);
-        v.y = rnd<BF16>(v.y);
-        v.z = rnd<BF16>(v.z);
-        v.w = rnd<BF16>(v.w);
-        reinterpret_cast<float4*>(r2)[idx] = v;
-      }
-      __syncthreads();  // also orders the dlog writes before the first read
-#pragma unroll
-      for (int kk = 0; kk < KT; ++kk) {
-        float a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = dl[(p0 + kk) * DLS + ty * 4 + i];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const float w = r2[kk * D + tx + 32 * c];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) dk[i][c] = fmaf(a[i], w, dk[i][c]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = r0 + ty * 4 + i;
-      if (r < n) {
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          dk_out[(size_t)r * D + tx + 32 * c] = dk[i][c];
-          dbk[c] += dk[i][c];
+          for (int k = 0; k < 4; ++k) {
+            c[k] += expf(acc[k / 2][nj][e + 2 * (k % 2)] - m[k]) / s[k] * gv;
+          }
         }
       }
     }
-
-    // dq partial [P][D] += dlog [P][BN] @ K [BN][D], K^T [D][KS] in r1
-    for (int c0 = 0; c0 < D; c0 += QC) {
-      float a2[8][12];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int k = 0; k < 12; ++k) a2[i][k] = 0.f;
-      }
-#pragma unroll 4
-      for (int r = 0; r < BN; ++r) {
-        float dv[8];
-        float kv[12];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) dv[i] = dl[(qg * 8 + i) * DLS + r];
-#pragma unroll
-        for (int k = 0; k < 12; ++k) kv[k] = r1[(c0 + cg + 8 * k) * KS + r];
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-#pragma unroll
-          for (int k = 0; k < 12; ++k) a2[i][k] = fmaf(dv[i], kv[k], a2[i][k]);
-        }
-      }
-      // each thread owns the same elements in every block: no race
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int k = 0; k < 12; ++k) {
-          const size_t o = (size_t)(qg * 8 + i) * D + c0 + cg + 8 * k;
-          dq[o] = b == b_begin ? a2[i][k] : dq[o] + a2[i][k];
-        }
-      }
-    }
-    __syncthreads();  // r1 and dl are rewritten for the next block
   }
+  write_rows(c, c_part + (size_t)blockIdx.x * P);
+}
 
-  // dbk over the CTA's rays: the 8 row groups summed in order through r2
+// The gradient pass over the CTA's run of ray blocks: dfeats rows, the
+// CTA's A partial a_part [C][P][D] and r partial r_part [C][P].
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+b2_grad(const uint4* __restrict__ qa, const uint2* __restrict__ qbf,
+        const float* __restrict__ qb_in, const float* __restrict__ feats,
+        const float* __restrict__ pmask, const float* __restrict__ valid,
+        const float* __restrict__ m_in, const float* __restrict__ s_in,
+        const float* __restrict__ c_in, const float* __restrict__ g_in, int n,
+        float sqrt_d, float* __restrict__ dfeats, float* __restrict__ a_part,
+        float* __restrict__ r_part) {
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* fp = reinterpret_cast<__nv_bfloat16*>(smem4);  // [NP][BN][FS]
+  __nv_bfloat16* dl = fp;                                        // [NP][P][LS], later
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4, mat = lane / 8;
+  const int nb = (n + BN - 1) / BN;
+  const int per = blocks_per_cta(n);
+  const int b_begin = blockIdx.x * per;
+  const int b_end = min(nb, b_begin + per);
+  float* ap = a_part + (size_t)blockIdx.x * P * D;
+  const float inv_sqrt_d = 1.f / sqrt_d;
+  float qb[4], m[4], s[4], c[4], pm[4], r[4] = {0.f, 0.f, 0.f, 0.f};
+  load_rows(qb_in, qb);
+  load_rows(m_in, m);
+  load_rows(s_in, s);
+  load_rows(c_in, c);
+  load_rows(pmask, pm);
+
+  for (int b = b_begin; b < b_end; ++b) {
+    const int r0 = b * BN;
+    __syncthreads();  // the last block's reads of dl are done
+    stage_feats<NP>(feats, n, r0, fp);
+    __syncthreads();
+    float acc[2][8][4];
+    block_logits<NP>(qa, fp, qb, valid, n, r0, sqrt_d, acc);
+
+    // dlog in place of the logits (zero past n) and its row sums
 #pragma unroll
-  for (int c = 0; c < CPT; ++c) r2[ty * D + tx + 32 * c] = dbk[c];
-  __syncthreads();
-  for (int col = tid; col < D; col += THREADS) {
-    float s = 0.f;
-    for (int t = 0; t < THREADS / 32; ++t) s += r2[t * D + col];
-    dbk_part[(size_t)blockIdx.x * D + col] = s;
+    for (int nj = 0; nj < 8; ++nj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int ray = r0 + 8 * nj + 2 * t + e;
+        const bool in = ray < n;
+        const float gv = in ? g_in[ray] : 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          float& v = acc[k / 2][nj][e + 2 * (k % 2)];
+          v = in ? pm[k] * (expf(v - m[k]) / s[k]) * (gv - c[k]) * inv_sqrt_d : 0.f;
+          r[k] += v;
+        }
+      }
+    }
+    // dlog's pieces as A fragments (patches x rays), straight from the
+    // accumulators: da[mi][kk] covers rays 16kk .. 16kk + 15
+    uint32_t da[2][4][NP][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t x0[NP], x1[NP], x2[NP], x3[NP];
+        mma::split2<NP>(acc[mi][2 * kk][0], acc[mi][2 * kk][1], x0);
+        mma::split2<NP>(acc[mi][2 * kk][2], acc[mi][2 * kk][3], x1);
+        mma::split2<NP>(acc[mi][2 * kk + 1][0], acc[mi][2 * kk + 1][1], x2);
+        mma::split2<NP>(acc[mi][2 * kk + 1][2], acc[mi][2 * kk + 1][3], x3);
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          da[mi][kk][i][0] = x0[i];
+          da[mi][kk][i][1] = x1[i];
+          da[mi][kk][i][2] = x2[i];
+          da[mi][kk][i][3] = x3[i];
+        }
+      }
+    }
+
+    // A partial [P][D] += dlog feats, 32 columns at a time; each thread owns
+    // the same elements in every block, so the read-modify-write is race-free
+    for (int c0 = 0; c0 < D; c0 += 32) {
+      float aa[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) aa[mi][nt][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int nt = 0; nt < 4; nt += 2) {
+          // B fragments (rays x d) of column tiles nt, nt + 1: matrices
+          // (rays, d) (rays + 8, d) (rays, d + 8) (rays + 8, d + 8), transposed
+          uint32_t bb[2][NP][2];
+#pragma unroll
+          for (int i = 0; i < NP; ++i) {
+            uint32_t x[4];
+            mma::ldmatrix_x4_trans(x, fp + (i * BN + 16 * kk + lane % 8 + 8 * (mat % 2)) * FS +
+                                          c0 + 8 * nt + 8 * (mat / 2));
+            bb[0][i][0] = x[0];
+            bb[0][i][1] = x[1];
+            bb[1][i][0] = x[2];
+            bb[1][i][1] = x[3];
+          }
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            mma::mma_pieces<NP>(aa[mi][nt], da[mi][kk], bb[0]);
+            mma::mma_pieces<NP>(aa[mi][nt + 1], da[mi][kk], bb[1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = 32 * warp + 16 * mi + g + 8 * h;
+#pragma unroll
+          for (int nt = 0; nt < 4; ++nt) {
+            float2* o = reinterpret_cast<float2*>(ap + (size_t)p * D + c0 + 8 * nt + 2 * t);
+            float2 v = make_float2(aa[mi][nt][2 * h], aa[mi][nt][2 * h + 1]);
+            if (b != b_begin) {
+              const float2 old = *o;
+              v.x += old.x;
+              v.y += old.y;
+            }
+            *o = v;
+          }
+        }
+      }
+    }
+    __syncthreads();  // every read of the feats pieces is done
+
+    // the dlog pieces into dl [NP][patch][ray], two rays per 32-bit store
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int p = my_patch(2 * mi + q % 2);
+            const int ray = 16 * kk + 2 * t + 8 * (q / 2);
+            *reinterpret_cast<uint32_t*>(dl + (i * P + p) * LS + ray) = da[mi][kk][i][q];
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // dfeats [BN][D] = dlog^T q'': warp w owns columns 48w..48w+47 of all
+    // BN rays; A (rays x patches) by transposed ldmatrix from dl, B from
+    // qbf [NP][PT][NT][32] (uint2)
+    float fa[4][6][4];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) fa[mt][nt][e] = 0.f;
+      }
+    }
+    for (int kt = 0; kt < PT; ++kt) {
+      uint32_t fa_a[4][NP][4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          // matrices (patches, rays) (patches, rays + 8) (patches + 8, rays)
+          // (patches + 8, rays + 8) of the [patch][ray] piece, transposed
+          mma::ldmatrix_x4_trans(fa_a[mt][i], dl + (i * P + 16 * kt + lane % 8 + 8 * (mat / 2)) *
+                                                       LS + 16 * mt + 8 * (mat % 2));
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < 6; ++nt) {
+        uint32_t bb[NP][2];
+#pragma unroll
+        for (int i = 0; i < NP; ++i) {
+          const uint2 v = qbf[((size_t)(i * PT + kt) * NT + 6 * warp + nt) * 32 + lane];
+          bb[i][0] = v.x;
+          bb[i][1] = v.y;
+        }
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) mma::mma_pieces<NP>(fa[mt][nt], fa_a[mt], bb);
+      }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int ray = r0 + 16 * mt + g + 8 * h;
+        if (ray < n) {
+#pragma unroll
+          for (int nt = 0; nt < 6; ++nt) {
+            *reinterpret_cast<float2*>(dfeats + (size_t)ray * D + 48 * warp + 8 * nt + 2 * t) =
+                make_float2(fa[mt][nt][2 * h], fa[mt][nt][2 * h + 1]);
+          }
+        }
+      }
+    }
+  }
+  write_rows(r, r_part + (size_t)blockIdx.x * P);
+}
+
+// q'' [P][D] into its bf16 pieces in fragment order: qa [NP][PT][KT][32]
+// (uint4, the logits' A operand: patches x d) and qbf [NP][PT][NT][32]
+// (uint2, dfeats' B operand: patches (k) x d (n)). One thread per lane of
+// one fragment.
+template <int NP>
+__global__ void __launch_bounds__(THREADS)
+b2_pack_q(const float* __restrict__ qpp, uint4* __restrict__ qa, uint2* __restrict__ qbf) {
+  const int idx = blockIdx.x * THREADS + threadIdx.x;
+  const int lane = idx % 32, frag = idx / 32;
+  const int g = lane / 4, t = lane % 4;
+  if (frag < PT * KT) {
+    const int mt = frag / KT, kt = frag % KT;
+    const float* r0 = qpp + (size_t)(16 * mt + g) * D + 16 * kt + 2 * t;
+    const float* r1 = r0 + 8 * D;
+    uint32_t x0[NP], x1[NP], x2[NP], x3[NP];
+    mma::split2<NP>(r0[0], r0[1], x0);
+    mma::split2<NP>(r1[0], r1[1], x1);
+    mma::split2<NP>(r0[8], r0[9], x2);
+    mma::split2<NP>(r1[8], r1[9], x3);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      qa[((size_t)(i * PT + mt) * KT + kt) * 32 + lane] = make_uint4(x0[i], x1[i], x2[i], x3[i]);
+    }
+  } else if (frag < PT * KT + PT * NT) {
+    const int f = frag - PT * KT;
+    const int kt = f / NT, nt = f % NT;
+    const float* col = qpp + (size_t)(16 * kt + 2 * t) * D + 8 * nt + g;
+    uint32_t x0[NP], x1[NP];
+    mma::split2<NP>(col[0], col[D], x0);
+    mma::split2<NP>(col[8 * D], col[9 * D], x1);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      qbf[((size_t)(i * PT + kt) * NT + nt) * 32 + lane] = make_uint2(x0[i], x1[i]);
+    }
   }
 }
 
-// dwk_part[split] [D][D] = feats^T dk over the split's rays, one WT x WT
-// output tile per CTA. Thread (ta = tid / 16, tb = tid % 16) owns rows
-// a0 + ta + 16i and columns b0 + tb + 16k (i, k < 8).
-template <int D, bool BF16>
-__global__ void __launch_bounds__(THREADS)
-b2_dwk(const float* __restrict__ feats, const float* __restrict__ dk, int n,
-       int rays_per_split, float* __restrict__ dwk_part) {
-  static_assert(D % WT == 0, "dWk tiles cover D");
-  __shared__ __align__(16) float fa[KT][WT];
-  __shared__ __align__(16) float gb[KT][WT];
-  constexpr int TILES = D / WT;
-  const int a0 = (blockIdx.x / TILES) * WT;
-  const int b0 = (blockIdx.x % TILES) * WT;
-  const int split = blockIdx.y;
-  const int j0 = split * rays_per_split;
-  const int j1 = min(n, j0 + rays_per_split);
-  const int tid = threadIdx.x;
-  const int ta = tid / 16;
-  const int tb = tid % 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) acc[i][k] = 0.f;
-  }
-  for (int jt = j0; jt < j1; jt += KT) {
-    for (int idx = tid; idx < KT * WT / 4; idx += THREADS) {
-      const int r = idx / (WT / 4);
-      const int c4 = idx % (WT / 4);
-      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 h = f;
-      if (jt + r < j1) {
-        f = reinterpret_cast<const float4*>(feats + (size_t)(jt + r) * D + a0)[c4];
-        h = reinterpret_cast<const float4*>(dk + (size_t)(jt + r) * D + b0)[c4];
-      }
-      f.x = rnd<BF16>(f.x);
-      f.y = rnd<BF16>(f.y);
-      f.z = rnd<BF16>(f.z);
-      f.w = rnd<BF16>(f.w);
-      h.x = rnd<BF16>(h.x);
-      h.y = rnd<BF16>(h.y);
-      h.z = rnd<BF16>(h.z);
-      h.w = rnd<BF16>(h.w);
-      reinterpret_cast<float4*>(&fa[r][0])[c4] = f;
-      reinterpret_cast<float4*>(&gb[r][0])[c4] = h;
+// out [M][ncols] = a b (+ u v^T), f32 FMA in k order: a is [M][K] read as
+// a[m * a_sm + k * a_sk], b [K][ldb] row-major, u [M] and v [ncols]
+// optional. One 16 x 16 output tile per CTA and one output per thread, k
+// staged 16 at a time (384-576 CTAs for the [256 or 384, 384] products).
+constexpr int GTILE = 16;
+constexpr int GT = GTILE * GTILE;
+
+__global__ void __launch_bounds__(GT)
+b2_gemm_tile(const float* __restrict__ a, int a_sm, int a_sk, const float* __restrict__ b,
+             int ldb, int M, int K, int ncols, const float* __restrict__ u,
+             const float* __restrict__ v, float* __restrict__ out) {
+  __shared__ float as[GTILE][GTILE + 1];  // [k][m]
+  __shared__ float bs[GTILE][GTILE];      // [k][n]
+  const int ty = threadIdx.x / GTILE, tx = threadIdx.x % GTILE;
+  const int m = blockIdx.y * GTILE + ty, n = blockIdx.x * GTILE + tx;
+  // a is staged along its contiguous axis: k when a_sk = 1, else m
+  const bool k_fast = a_sk == 1;
+  const int am = blockIdx.y * GTILE + (k_fast ? ty : tx);
+  const int ak = k_fast ? tx : ty;
+  float acc = 0.f;
+  for (int k0 = 0; k0 < K; k0 += GTILE) {
+    const float av = am < M && k0 + ak < K ? a[(size_t)am * a_sm + (size_t)(k0 + ak) * a_sk] : 0.f;
+    if (k_fast) {
+      as[tx][ty] = av;
+    } else {
+      as[ty][tx] = av;
     }
+    bs[ty][tx] = k0 + ty < K && n < ncols ? b[(size_t)(k0 + ty) * ldb + n] : 0.f;
     __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      float av[8];
-      float bv[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) av[i] = fa[kk][ta + 16 * i];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) bv[k] = gb[kk][tb + 16 * k];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int k = 0; k < 8; ++k) acc[i][k] = fmaf(av[i], bv[k], acc[i][k]);
-      }
-    }
+    for (int k = 0; k < GTILE; ++k) acc = fmaf(as[k][ty], bs[k][tx], acc);
     __syncthreads();
   }
-  float* out = dwk_part + (size_t)split * D * D;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      out[(size_t)(a0 + ta + 16 * i) * D + b0 + tb + 16 * k] = acc[i][k];
-    }
-  }
+  if (m < M && n < ncols) out[(size_t)m * ncols + n] = acc + (u ? u[m] * v[n] : 0.f);
 }
 
 // out[e] = sum_k part[k * e_count + e], k in order.
@@ -367,113 +562,114 @@ b2_sum_parts(const float* __restrict__ part, int k_count, int e_count,
   out[e] = s;
 }
 
-// dfeats = dk Wk^T over one ray block, in place: every dk row of the block
-// is staged in shared memory before the first write.
-template <int D, bool BF16>
-__global__ void __launch_bounds__(THREADS)
-b2_dfeats(const float* __restrict__ wk_t, int n, float* dk_dfeats) {
-  constexpr int CPT = D / 32;
-  extern __shared__ float4 smem4[];
-  float* r1 = reinterpret_cast<float*>(smem4);
-  float* r2 = r1 + region1_floats<D>();
-  const int r0 = blockIdx.x * BN;
-  stage_rows<D, BF16>(dk_dfeats, n, r0, r1);
-  float acc[4][CPT];
-  project_rows<D, BF16>(r1, wk_t, r2, acc);
-  const int ty = threadIdx.x / 32;
-  const int tx = threadIdx.x % 32;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty * 4 + i;
-    if (r < n) {
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) dk_dfeats[(size_t)r * D + tx + 32 * c] = acc[i][c];
-    }
-  }
-}
-
 struct Args {
-  const float *q_t, *q, *feats, *wk, *wk_t, *bk, *pmask, *valid, *m, *s, *g;
-  float *dfeats, *dq, *dwk, *dbk, *c_part, *c, *dq_part, *dbk_part, *dwk_part;
+  const float *q, *feats, *wk, *wk_t, *bk, *pmask, *valid, *m, *s, *g;
+  float *dfeats, *dq, *dwk, *dbk;
+  float *qpp, *qb, *frags, *c_part, *c, *a_part, *a, *r_part, *r;
   int n;
   float sqrt_d;
   cudaStream_t stream;
 };
 
-template <int D, bool BF16>
-cudaError_t launch(const Args& a) {
-  const int n = a.n;
-  const int nb = (n + BN - 1) / BN;
-  const int nch = grad_ctas(n);
-  const size_t smem = smem_bytes<D>();
-  const size_t gsmem = grad_smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      b2_c<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      b2_grad<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gsmem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      b2_dfeats<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-
-  b2_c<D, BF16><<<nb, THREADS, smem, a.stream>>>(a.q_t, a.feats, a.wk, a.bk, a.valid,
-                                                 a.m, a.s, a.g, n, a.sqrt_d, a.c_part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b2_row_sums<<<P, THREADS, 0, a.stream>>>(a.c_part, nb, a.c);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b2_grad<D, BF16><<<nch, THREADS, gsmem, a.stream>>>(
-      a.q_t, a.q, a.feats, a.wk, a.bk, a.pmask, a.valid, a.m, a.s, a.c, a.g, n,
-      a.sqrt_d, a.dfeats, a.dq_part, a.dbk_part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const int rays_per_split = (n + WSPLIT - 1) / WSPLIT;
-  b2_dwk<D, BF16><<<dim3((D / WT) * (D / WT), WSPLIT), THREADS, 0, a.stream>>>(
-      a.feats, a.dfeats, n, rays_per_split, a.dwk_part);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b2_sum_parts<<<(P * D + THREADS - 1) / THREADS, THREADS, 0, a.stream>>>(
-      a.dq_part, nch, P * D, a.dq);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b2_sum_parts<<<(D * D + THREADS - 1) / THREADS, THREADS, 0, a.stream>>>(
-      a.dwk_part, WSPLIT, D * D, a.dwk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b2_sum_parts<<<(D + THREADS - 1) / THREADS, THREADS, 0, a.stream>>>(
-      a.dbk_part, nch, D, a.dbk);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  b2_dfeats<D, BF16><<<nb, THREADS, smem, a.stream>>>(a.wk_t, n, a.dfeats);
+cudaError_t gemm(const Args& x, const float* a, int a_sm, int a_sk, const float* b, int ldb,
+                 int M, int K, int ncols, const float* u, const float* v, float* out) {
+  const dim3 grid((ncols + GTILE - 1) / GTILE, (M + GTILE - 1) / GTILE);
+  b2_gemm_tile<<<grid, GT, 0, x.stream>>>(a, a_sm, a_sk, b, ldb, M, K, ncols, u, v, out);
   return cudaGetLastError();
+}
+
+cudaError_t sum_parts(const Args& x, const float* part, int k_count, int e_count,
+                      float* out) {
+  b2_sum_parts<<<(e_count + THREADS - 1) / THREADS, THREADS, 0, x.stream>>>(
+      part, k_count, e_count, out);
+  return cudaGetLastError();
+}
+
+template <int NP>
+cudaError_t launch(const Args& x) {
+  const int n = x.n;
+  const int nc = n_ctas(n);
+  const size_t smem = smem_bytes<NP>();
+  cudaError_t err = cudaFuncSetAttribute(b2_c<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(b2_grad<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (err != cudaSuccess) return err;
+  uint4* qa = reinterpret_cast<uint4*>(x.frags);
+  uint2* qbf = reinterpret_cast<uint2*>(qa + (size_t)NP * PT * KT * 32);
+
+  // prologue: q'' = q Wk^T (b = Wk^T row-major), qb = q bk, the pieces
+  if ((err = gemm(x, x.q, D, 1, x.wk_t, D, P, D, D, nullptr, nullptr, x.qpp))) return err;
+  if ((err = gemm(x, x.q, D, 1, x.bk, 1, P, D, 1, nullptr, nullptr, x.qb))) return err;
+  b2_pack_q<NP><<<(PT * KT + PT * NT) * 32 / THREADS, THREADS, 0, x.stream>>>(x.qpp, qa, qbf);
+  if ((err = cudaGetLastError())) return err;
+
+  b2_c<NP><<<nc, THREADS, smem, x.stream>>>(qa, x.qb, x.feats, x.valid, x.m, x.s, x.g, n,
+                                              x.sqrt_d, x.c_part);
+  if ((err = cudaGetLastError())) return err;
+  if ((err = sum_parts(x, x.c_part, nc, P, x.c))) return err;
+  b2_grad<NP><<<nc, THREADS, smem, x.stream>>>(qa, qbf, x.qb, x.feats, x.pmask, x.valid,
+                                                 x.m, x.s, x.c, x.g, n, x.sqrt_d, x.dfeats,
+                                                 x.a_part, x.r_part);
+  if ((err = cudaGetLastError())) return err;
+  if ((err = sum_parts(x, x.a_part, nc, P * D, x.a))) return err;
+  if ((err = sum_parts(x, x.r_part, nc, P, x.r))) return err;
+
+  // epilogue: dq = A Wk + r bk^T, dWk = A^T q, dbk = q^T r
+  if ((err = gemm(x, x.a, D, 1, x.wk, D, P, D, D, x.r, x.bk, x.dq))) return err;
+  if ((err = gemm(x, x.a, 1, D, x.q, D, D, P, D, nullptr, nullptr, x.dwk))) return err;
+  return gemm(x, x.r, 0, 1, x.q, D, 1, P, D, nullptr, nullptr, x.dbk);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of the scratch buffers for n rays: c partials [256, b2_c_blocks(n)],
-// dq partials [b2_grad_ctas(n), 256, d], dbk partials [b2_grad_ctas(n), d],
-// dWk partials [b2_dwk_splits(), d, d].
-int b2_c_blocks(int n) { return (n + BN - 1) / BN; }
-int b2_grad_ctas(int n) { return grad_ctas(n); }
-int b2_dwk_splits() { return WSPLIT; }
+// Scratch for n rays: b2_scratch_floats(n) floats in one buffer, carved by
+// the launcher into 16-byte aligned pieces.
+long long b2_scratch_floats(int n) {
+  const long long nc = n_ctas(n);
+  const long long frags = 3LL * (PT * KT * 32 * 4 + PT * NT * 32 * 2);  // bf16 pairs
+  return (long long)P * D + P + frags + nc * P + P + nc * P * D + (long long)P * D + nc * P + P;
+}
 
 // All pointers are device pointers to contiguous float32, 16-byte aligned:
-// q_t [d, 256], q [256, d], feats [n, d], wk [d, d] (in, out), wk_t = wk^T,
-// bk [d], pmask [256], valid [n], m / s [256] (the forward's residuals),
-// g [n]; outputs dfeats [n, d], dq [256, d], dwk [d, d], dbk [d]; scratch
-// c_part, c [256], dq_part, dbk_part, dwk_part as sized above. Returns the
-// first CUDA error (0 when every launch was accepted).
-int b2_attention_scores_bwd(const float* q_t, const float* q, const float* feats,
-                            const float* wk, const float* wk_t, const float* bk,
-                            const float* pmask, const float* valid,
-                            const float* m, const float* s, const float* g,
-                            float* dfeats, float* dq, float* dwk, float* dbk,
-                            float* c_part, float* c, float* dq_part,
-                            float* dbk_part, float* dwk_part, int n, int d,
-                            int p, int bf16, float sqrt_d, void* stream) {
-  if (p != P || n <= 0) return (int)cudaErrorInvalidValue;
-  if (d != 384) return (int)cudaErrorInvalidValue;  // DINOv2-S width only
-  const Args a{q_t, q, feats, wk, wk_t, bk, pmask, valid, m, s, g,
-               dfeats, dq, dwk, dbk, c_part, c, dq_part, dbk_part, dwk_part,
-               n, sqrt_d, static_cast<cudaStream_t>(stream)};
-  return (int)(bf16 ? launch<384, true>(a) : launch<384, false>(a));
+// q [256, d], feats [n, d], wk [d, d] (in, out), wk_t = wk^T, bk [d],
+// pmask [256], valid [n], m / s [256] (the forward's residuals), g [n];
+// outputs dfeats [n, d], dq [256, d], dwk [d, d], dbk [d]; scratch of
+// b2_scratch_floats(n) floats. mode: 0 "bf16", 1 "bf16_split3", 2 "f32".
+// Returns the first CUDA error (0 when every launch was accepted).
+int b2_attention_scores_bwd(const float* q, const float* feats, const float* wk,
+                            const float* wk_t, const float* bk, const float* pmask,
+                            const float* valid, const float* m, const float* s,
+                            const float* g, float* dfeats, float* dq, float* dwk,
+                            float* dbk, float* scratch, int n, int d, int p, int mode,
+                            float sqrt_d, void* stream) {
+  if (p != P || d != D || n <= 0 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  const long long nc = n_ctas(n);
+  Args x{q, feats, wk, wk_t, bk, pmask, valid, m, s, g, dfeats, dq, dwk, dbk};
+  float* at = scratch;
+  auto take = [&at](long long count) {
+    float* out = at;
+    at += (count + 3) / 4 * 4;
+    return out;
+  };
+  x.qpp = take((long long)P * D);
+  x.qb = take(P);
+  x.frags = take(3LL * (PT * KT * 32 * 4 + PT * NT * 32 * 2));
+  x.c_part = take(nc * P);
+  x.c = take(P);
+  x.a_part = take(nc * P * D);
+  x.a = take((long long)P * D);
+  x.r_part = take(nc * P);
+  x.r = take(P);
+  x.n = n;
+  x.sqrt_d = sqrt_d;
+  x.stream = static_cast<cudaStream_t>(stream);
+  if (mode == 0) return (int)launch<1>(x);
+  if (mode == 1) return (int)launch<2>(x);
+  return (int)launch<3>(x);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
-// Tile code shared by the attention-score forward (attention_scores.cu, B1)
-// and backward (attention_scores_bwd.cu, B2): the CTA shape, the bf16
-// operand rounding, and the per-CTA recomputation of one ray block's K and
-// logits, which both kernels do instead of keeping a [P, N] logits buffer.
+// Tile code of the attention-score forward (attention_scores.cu, B1): the
+// CTA shape, the bf16 operand rounding, and the per-CTA recomputation of one
+// ray block's K and logits, which its emit pass does instead of keeping a
+// [P, N] logits buffer. The backward (attention_scores_bwd.cu, B2) forms no
+// K and takes its tensor-core helpers from mma_pieces.cuh instead.
 //
 // Layouts: q_t [D, P] (q transposed), feats [n, D], Wk [D, D] (in, out),
 // bk [D], valid [n] (> 0 means valid), all contiguous float32, 16-byte

@@ -17,30 +17,40 @@ On a CUDA tensor the forward launches the hand-written kernel in
 kernel's sequential two-pass grid becomes split-N on the card: per-CTA
 partial (max, sum-exp), a combine, and an emit pass that recomputes K and
 the logits. One counted launch is three CUDA kernels (b1_stats, b1_combine,
-b1_emit). Bound: the function needs 2 (N d^2 + P N d) flops (16.1 GFLOP at
-N=32768, d=384) against ~2 N d * 4 bytes, so it is bound by compute on the
-card: 0.240 ms at the 67 TFLOP/s f32 peak. The kernel executes twice those
-flops, because its second pass recomputes K and the logits, as the TPU
-kernel's does.
+b1_emit). It forms K: 2 (N d^2 + P N d) flops (16.1 GFLOP at N=32768,
+d=384), executed twice, because its second pass recomputes K and the
+logits, as the TPU kernel's does. Its bound is reckoned on B2's terms: the
+same function without K, 2 (P N d + P d^2) flops (6.52 GFLOP), at the bf16
+tensor-core rate divided by the mode's products, 0.020 ms in split3, bound
+by operations.
 
 The backward launches ``csrc/attention_scores_bwd.cu``, which replaces the
-TPU kernel ``_bwd_kernel`` (launched by ``_fused_scores_bwd``): c_p =
-sum_j P_pj g_j, then dlog = pmask P (g - c) / sqrt(d), dk = dlog^T q,
-dfeats = dk Wk^T, dq = dlog K, dWk = feats^T dk, dbk = sum_j dk_j, with
-every cross-CTA sum taken through partials in a fixed order. One counted
-launch is eight CUDA kernels. Bound: 2 (3 N d^2 + 3 P N d) flops, 48.3
-GFLOP at N=32768, 0.721 ms at the f32 peak. As in the TPU kernel, dlog is
-not masked by ray validity: with every ray invalid, invalid rays get a
-nonzero dfeats where autodiff of the masked formula gives zero.
+TPU kernel ``_bwd_kernel`` (launched by ``_fused_scores_bwd``), reassociated
+so that K is never formed: q'' = q Wk^T and qb = q bk give the logits
+(q'' feats^T + qb) / sqrt(d), c_p = sum_j P_pj g_j, dlog = pmask P (g - c) /
+sqrt(d), dfeats = dlog^T q'', A = dlog feats and r = rowsum(dlog), then
+dq = A Wk + r bk^T, dWk = A^T q and dbk = q^T r. The three P N d products
+run on the tensor cores (mma.sync over bf16 pieces, ``csrc/mma_pieces.cuh``),
+every cross-CTA sum in a fixed order, so two launches agree bitwise. One
+counted launch is eleven CUDA kernels. Bound: 2 (3 P N d + 3 P d^2) flops,
+19.56 GFLOP at N=32768, at the bf16 tensor-core rate divided by the
+products the mode needs (1, 3 or 6): 0.059 ms in split3. As in the TPU
+kernel, dlog is not masked by ray validity: with every ray invalid,
+invalid rays get a nonzero dfeats where autodiff of the masked formula
+gives zero.
 
 On a CPU tensor each direction runs its plain PyTorch version
 (``attention_scores_plain``, ``attention_scores_bwd_plain``), the same
-arithmetic. A CUDA tensor never falls back to the plain version.
+arithmetic in the same order. A CUDA tensor never falls back to the plain
+version.
 
-Precision ``mode``: "f32" and "bf16_split3" both compute in plain f32 (the
-TPU's split3 exists to reach f32-class accuracy on a bf16 MXU); "bf16"
-rounds every matmul operand to bf16 at the TPU kernel's _dot points and
-accumulates in f32.
+Precision ``mode``: in the forward, "f32" and "bf16_split3" both compute in
+plain f32 and "bf16" rounds every matmul operand to bf16 at the TPU
+kernel's _dot points. In the backward every mode runs on the tensor cores
+with f32 accumulation: "bf16" one bf16 piece per operand (q'', feats and
+dlog rounded once, as the plain version rounds them), "bf16_split3" the TPU
+kernel's hi/lo split (3 products, ~2^-18 relative), "f32" three pieces (6
+products); the plain version computes both f32-class modes in plain f32.
 """
 
 from __future__ import annotations
@@ -87,25 +97,32 @@ def attention_scores_plain(q, ray_feats, wk, bk, pmask, valid,
 
 def attention_scores_bwd_plain(q, ray_feats, wk, bk, pmask, valid, m, s, g,
                                mode: str = "bf16_split3"):
-    """The backward kernel's function in plain PyTorch: (dq [P, d],
-    dfeats [N, d], dwk [d, d], dbk [d]) for the score cotangent ``g`` [N],
-    with m, s the forward's [P, 1] (or [P]) residuals. Like the TPU kernel
+    """The backward kernel's function in plain PyTorch, in the kernel's
+    reassociated order: (dq [P, d], dfeats [N, d], dwk [d, d], dbk [d]) for
+    the score cotangent ``g`` [N], with m, s the forward's [P, 1] (or [P])
+    residuals. K is never formed: q'' = q Wk^T and qb = q bk give the
+    logits, dfeats = dlog^T q'', A = dlog feats and r = rowsum(dlog) give
+    dq = A Wk + r bk^T, dWk = A^T q and dbk = q^T r. The products on the ray
+    stream go through ``_dot`` (in "bf16" q'', feats and dlog are rounded,
+    as in the kernel); the small ones are plain f32. Like the TPU kernel
     (and unlike autodiff of the masked formula), dlog is not masked by
     ``valid``."""
     P, d = q.shape
     inv_sqrt_d = 1.0 / math.sqrt(d)
-    k = _dot(ray_feats, wk, mode) + bk
-    logits = _dot(q, k.T, mode) / math.sqrt(d)
+    qpp = q @ wk.T
+    qb = q @ bk
+    logits = (_dot(qpp, ray_feats.T, mode) + qb[:, None]) / math.sqrt(d)
     logits = torch.where(valid[None, :] > 0.0, logits,
                          torch.full_like(logits, NEG))
     probs = torch.exp(logits - m.reshape(P, 1)) / s.reshape(P, 1)
     c = torch.sum(probs * g[None, :], dim=1, keepdim=True)
     dlog = pmask[:, None] * probs * (g[None, :] - c) * inv_sqrt_d
-    dk = _dot(dlog.T, q, mode)
-    dfeats = _dot(dk, wk.T, mode)
-    dq = _dot(dlog, k, mode)
-    dwk = _dot(ray_feats.T, dk, mode)
-    dbk = torch.sum(dk, dim=0)
+    dfeats = _dot(dlog.T, qpp, mode)
+    a = _dot(dlog, ray_feats, mode)
+    r = torch.sum(dlog, dim=1)
+    dq = a @ wk + r[:, None] * bk[None, :]
+    dwk = a.T @ q
+    dbk = r @ q
     return dq, dfeats, dwk, dbk
 
 
@@ -139,11 +156,9 @@ _SIGNATURES = {
         "b1_rays_per_block": (ctypes.c_int, []),
     },
     "attention_scores_bwd": {
-        "b2_attention_scores_bwd": (ctypes.c_int, [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4
+        "b2_attention_scores_bwd": (ctypes.c_int, [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
                                     + [ctypes.c_float, ctypes.c_void_p]),
-        "b2_c_blocks": (ctypes.c_int, [ctypes.c_int]),
-        "b2_grad_ctas": (ctypes.c_int, [ctypes.c_int]),
-        "b2_dwk_splits": (ctypes.c_int, []),
+        "b2_scratch_floats": (ctypes.c_longlong, [ctypes.c_int]),
     },
 }
 
@@ -168,20 +183,21 @@ def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
     return scores, m, s
 
 
+# the backward kernel's mode argument: bf16 pieces per operand less one
+_B2_MODE = {"bf16": 0, "bf16_split3": 1, "f32": 2}
+
+
 def _kernel_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode):
     _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid)
     lib = _library("attention_scores_bwd")
     P, d = q.shape
     N = ray_feats.shape[0]
-    n_ctas = lib.b2_grad_ctas(N)
     new = functools.partial(torch.empty, dtype=torch.float32, device=q.device)
-    ins = [_aligned(t) for t in (q.T, q, ray_feats, wk, wk.T, bk, pmask, valid,
+    ins = [_aligned(t) for t in (q, ray_feats, wk, wk.T, bk, pmask, valid,
                                  m.reshape(P), s.reshape(P), g.reshape(N))]
     dfeats, dq, dwk, dbk = new(N, d), new(P, d), new(d, d), new(d)
-    scratch = (new(P, lib.b2_c_blocks(N)), new(P), new(n_ctas, P, d), new(n_ctas, d),
-               new(lib.b2_dwk_splits(), d, d))
-    _build.launch(lib.b2_attention_scores_bwd, *ins, dfeats, dq, dwk, dbk, *scratch,
-            N, d, P, int(mode == "bf16"), math.sqrt(d))
+    _build.launch(lib.b2_attention_scores_bwd, *ins, dfeats, dq, dwk, dbk,
+                  new(lib.b2_scratch_floats(N)), N, d, P, _B2_MODE[mode], math.sqrt(d))
     attention_scores_bwd.launches += 1
     return dq, dfeats, dwk, dbk
 
@@ -227,8 +243,8 @@ def attention_scores_bwd(q, ray_feats, wk, bk, patch_mask, ray_valid, m, s, g,
                                       g.to(torch.float32), mode)
 
 
-# launches on CUDA tensors; each is eight CUDA kernels (b2_c, b2_row_sums,
-# b2_grad, b2_dwk, three b2_sum_parts, b2_dfeats)
+# launches on CUDA tensors; each is eleven CUDA kernels (five b2_gemm_tile,
+# b2_pack_q, b2_c, b2_grad, three b2_sum_parts)
 attention_scores_bwd.launches = 0
 
 

@@ -92,7 +92,8 @@ class TestPlainVersusPallas:
 class TestPlainBackwardVersusPallas:
     """B2's plain version, and autograd through the port's Function,
     against jax.grad through the Pallas kernel (interpret mode) for all four
-    inputs, at the tolerance of tests/test_attention_kernel.py."""
+    inputs, at the tolerance of tests/test_attention_kernel.py in the
+    f32-class modes (bf16's is restated below: the rounding points moved)."""
 
     @staticmethod
     def _jax_grads(q, feats, wk, bk, pmask, valid, g, mode):
@@ -104,6 +105,19 @@ class TestPlainBackwardVersusPallas:
 
         return [np.asarray(x) for x in jax.grad(loss, argnums=(0, 1, 2, 3))(
             *map(jnp.asarray, (q, feats, wk, bk)))]
+
+    @staticmethod
+    def _dk_scale(q, feats, wk, bk, pmask, valid, g):
+        """max_col sum_j |dk_j|, dk = dlog^T q, in float64 (K path)."""
+        q, feats, wk, bk, pmask, valid, g = (np.asarray(x, np.float64) for x in
+                                             (q, feats, wk, bk, pmask, valid, g))
+        logits = q @ (feats @ wk + bk).T / np.sqrt(q.shape[1])
+        logits = np.where(valid[None] > 0, logits, jak.NEG)
+        e = np.exp(logits - logits.max(1, keepdims=True))
+        probs = e / e.sum(1, keepdims=True)
+        c = (probs * g).sum(1, keepdims=True)
+        dlog = pmask[:, None] * probs * (g - c) / np.sqrt(q.shape[1])
+        return np.abs(dlog.T @ q).sum(0).max()
 
     @pytest.mark.parametrize("mode", ["f32", "bf16", "bf16_split3"])
     @pytest.mark.parametrize("all_invalid", [False, True])
@@ -123,17 +137,63 @@ class TestPlainBackwardVersusPallas:
         leaves = [x.clone().requires_grad_(True) for x in (tq, tf, twk, tbk)]
         scores = tak.attention_scores_fused(*leaves, tpm, tv, mode=mode)
         auto = torch.autograd.grad(torch.sum(scores * tg), leaves)
+        # bf16: the port rounds q'' = q Wk^T, feats and dlog (its
+        # reassociated order), the Pallas kernel feats, Wk, K, q, dlog and
+        # dk. Each rounding is off by up to 2^-9 relative, so the two
+        # logits, and from them every gradient, differ by a few 2^-9 of
+        # their terms' size (read: 4.4e-3 of max |dq|): 4 x 2^-9 of the
+        # largest gradient entry. dbk is zero in exact arithmetic (its value
+        # is rounding noise in both), so it is held against the size of the
+        # terms it sums, max_col sum_j |dk_j|
+        bf16_tol = 4 * 2.0 ** -9
+        dk_scale = self._dk_scale(q, feats, wk, bk, pmask, valid, g)
         for name, r, a, b in zip(("dq", "dfeats", "dwk", "dbk"), ref, plain, auto):
-            # bf16: both round dlog and dk to bf16 at the same points, but
-            # from f32 sums taken in another order, so a value on a rounding
-            # boundary lands one bf16 step (2^-8) apart
-            atol = 2e-5 + (1e-3 * np.abs(r).max() if mode == "bf16" else 0.0)
+            scale = dk_scale if name == "dbk" else np.abs(r).max()
+            atol = 2e-5 + (bf16_tol * scale if mode == "bf16" else 0.0)
             np.testing.assert_allclose(a.numpy(), r, atol=atol, rtol=1e-3, err_msg=name)
             np.testing.assert_allclose(b.numpy(), r, atol=atol, rtol=1e-3, err_msg=name)
         if all_invalid:
             assert np.abs(ref[1]).max() > 1e-3  # the pinned quirk
         else:
             np.testing.assert_array_equal(plain[1][-100:].numpy(), 0.0)
+
+
+class TestReassociationIdentity:
+    """The plain backward in its reassociated order (q'' = q Wk^T, A =
+    dlog feats: dq = A Wk + r bk^T, dWk = A^T q, dbk = q^T r, dfeats =
+    dlog^T q'') against the K-path formula of the TPU kernel's _bwd_kernel
+    (dk = dlog^T q, dfeats = dk Wk^T, dq = dlog K, dWk = feats^T dk, dbk =
+    sum_j dk_j), both in float64: exact in real arithmetic, so they agree to
+    float64 rounding."""
+
+    @pytest.mark.parametrize("case", ["partial", "all_invalid"])
+    def test_reassociated_equals_k_path(self, case):
+        q, feats, wk, bk, pmask, valid = (torch.tensor(x, dtype=torch.float64) for x in
+                                          _problem(seed=11, d=64, N=300, n_invalid=40))
+        if case == "all_invalid":
+            valid = torch.zeros_like(valid)
+        g = torch.tensor(np.random.default_rng(12).normal(size=300))
+        _, m, s = tak.attention_scores_plain(q, feats, wk, bk, pmask, valid, mode="f32")
+        got = tak.attention_scores_bwd_plain(q, feats, wk, bk, pmask, valid, m, s, g,
+                                             mode="f32")
+        d = q.shape[1]
+        k = feats @ wk + bk
+        logits = torch.where(valid[None] > 0, q @ k.T / d ** 0.5,
+                             torch.full((q.shape[0], 300), tak.NEG, dtype=torch.float64))
+        probs = torch.exp(logits - m) / s
+        c = (probs * g).sum(1, keepdim=True)
+        dlog = pmask[:, None] * probs * (g - c) / d ** 0.5
+        dk = dlog.T @ q
+        want = (dlog @ k, dk @ wk.T, feats.T @ dk, dk.sum(0))
+        for name, a, b in zip(("dq", "dfeats", "dwk", "dbk"), got, want):
+            assert a.dtype == torch.float64, name
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-10 * max(b.abs().max().item(), 1e-3),
+                                       err_msg=name)
+        if case == "all_invalid":
+            assert got[1].abs().max().item() > 1e-3  # invalid rays keep a dfeats
+        else:
+            assert (got[1][-40:] == 0).all()  # the invalid tail: exactly zero
 
 
 class TestWrapperContract:

@@ -131,6 +131,30 @@ class TestAttentionScoresBackwardKernel:
         dq, dfeats, dwk, dbk = _b2_check(ins, mode, tol, seed=7)
         assert (dfeats[-700:] == 0).all()
 
+    def test_largest_ray_count_split3(self):
+        """N = 131,072 (four times the default budget) in the default mode:
+        the longest per-CTA runs of ray blocks and A partials."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA GPU and nvcc")
+        ins = _b1_inputs(seed=10, N=131072, n_invalid=700)
+        dq, dfeats, dwk, dbk = _b2_check(ins, "bf16_split3", 1e-4, seed=11)
+        assert (dfeats[-700:] == 0).all()
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16_split3", "bf16"])
+    def test_two_launches_are_bitwise_equal(self, mode):
+        """Every cross-CTA sum is taken in a fixed order (no float atomics)."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA GPU and nvcc")
+        ins = _b1_inputs(seed=12, N=32768)
+        g = torch.tensor(np.random.default_rng(13).normal(size=32768), dtype=torch.float32,
+                         device="cuda")
+        _, m, s = tak.attention_scores_fwd(*ins, mode=mode)
+        first = tak.attention_scores_bwd(*ins, m, s, g, mode=mode)
+        second = tak.attention_scores_bwd(*ins, m, s, g, mode=mode)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("dq", "dfeats", "dwk", "dbk"), first, second):
+            assert torch.equal(a, b), name
+
     def test_all_invalid_rays_get_the_unmasked_gradient(self):
         """The TPU kernel does not mask dlog by validity: with every ray
         invalid each patch spreads 1/N over them, and dfeats is nonzero."""
