@@ -11,8 +11,11 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
   2. hold each kernel against its plain PyTorch version on the card: B1
      and B2 at the pose paths' shapes (P=256, d=384, N in {32768, 131072},
      all three precision modes, a partial patch mask and a padded tail of
-     invalid rays, plus B2 with every ray invalid, and B2 launched twice
-     on the same inputs bitwise equal in each mode); B5 on a truncated
+     invalid rays, plus B2 with every ray invalid, and each launched twice
+     on the same inputs bitwise equal in each mode); B1 at a ragged
+     N = 5000 with its invalid tail scored exactly 0; in each mode the
+     probabilities of the logits tile that B1 and B2 share summing to 1
+     against B1's m and s (MASS_TOL); B5 on a truncated
      1232x816 layout and on all-empty tiles (equal); B3 on 64 tiles of
      2,000-2,600 pairs each, opaque (tiles exit early) and translucent, and
      on the same tiles B3 with the transmittance store (``out`` bitwise as
@@ -65,9 +68,10 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      profiles of one image, one id-module training step, one render and
      one 3DGS training step, with each CUDA kernel's share of one B2 call
      and B1's and B2's share of the id-module step's device time, and the
-     registers and shared memory of B2's kernels (ptxas). B1's
-     ``launches`` counts calls of its wrapper, each three CUDA kernels;
-     B2's, each eleven; B5's, B3's and B4's, one each.
+     registers and shared memory of B1's and B2's kernels (ptxas), each
+     CUDA kernel's share of one B1 call and B1's share of a served
+     image's device time. B1's ``launches`` counts calls of its wrapper,
+     each four CUDA kernels; B2's, each ten; B5's, B3's and B4's, one each.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -105,11 +109,26 @@ BF16_FLOPS_PER_S = 989e12
 # needs (mma_pieces.cuh): the attention kernels' bounds take the bf16 rate
 # divided by these
 PRODUCTS = {"bf16": 1, "bf16_split3": 3, "f32": 6}
-# kernel vs plain: f32-class modes differ only in summation order; bf16
-# rounds K inside the kernel and in the plain version at the same points,
-# but an f32 K that lands on a bf16 rounding boundary can round apart
+# B1 vs plain: both take the reassociated order (q'' = q Wk^T, logits =
+# (q'' feats^T + q bk) / sqrt(d)) and the same operand pieces (split3: the
+# TPU kernel's hi/lo split of q'' and feats, 3 products; f32: plain in the
+# plain version, 3 pieces and 6 products in the kernel, ~2^-24), so the
+# f32-class modes differ only in summation order; bf16 rounds q'' and
+# feats, in the kernel and in the plain version at the same points, but a
+# q'' computed in another order (f32 FMA in the kernel, cuBLAS in the plain
+# version) that lands on a bf16 rounding boundary can round apart. Each
+# mode's reading against plain f32 is logged beside it
 TOL = {"f32": 1e-5, "bf16_split3": 1e-5, "bf16": 1e-3}
 STAT_TOL = {"f32": 1e-5, "bf16_split3": 1e-5, "bf16": 1e-2}
+# max_p |sum_j P_pj - 1| for the probabilities of the shared logits tile
+# against B1's m and s, read through B1 itself (softmax_mass_error): in
+# exact arithmetic 0 in every mode, since the logits are one tile. What is
+# left is f32 rounding: s_p is a chain of at most ~540 roundings (16 rays a
+# thread per block over up to 16 blocks of a CTA's run, the rescales, 2
+# lane steps, 132 CTA partials), 540 x 2^-24 = 3.2e-5 relative at worst,
+# plus expf (2 ulp) and the division in each P_pj, ~5e-7; the sum over j
+# is taken in float64
+MASS_TOL = 5e-5
 # B2 vs plain, each gradient against its max |plain|: both take the same
 # reassociated order (q'' = q Wk^T, A = dlog feats), but the kernel sums the
 # logits, dfeats and A over 16-wide mma k-steps of bf16 pieces in f32 (split3
@@ -240,15 +259,23 @@ def b1_inputs(n: int, gen):
     return q, feats, wk, bk, pmask, valid
 
 
-def b1_flops(n: int) -> int:
-    """Flops the function needs: K = feats Wk and the logits q K^T, once."""
+def b1_flops_k_path(n: int) -> int:
+    """Flops of the function through K = feats Wk and the logits q K^T,
+    once; the earlier design executed them twice."""
     return 2 * (n * D * D + P * n * D)
 
 
 def b1_flops_reassociated(n: int) -> int:
-    """Flops of the same function without K: q'' = q Wk^T, then the logits
+    """Flops the function needs, without K: q'' = q Wk^T, then the logits
     (q'' feats^T + q bk) / sqrt(d)."""
     return 2 * (P * n * D + P * D * D)
+
+
+def b1_executed_flops(n: int) -> int:
+    """Flops the kernel executes: the logits twice (stats pass, emit pass)
+    on the tensor cores (each times the mode's products), q'' and qb in
+    f32 FMA."""
+    return 2 * 2 * P * n * D + 2 * P * D * (D + 1)
 
 
 def b1_bound(n: int, mode: str):
@@ -262,30 +289,80 @@ def b1_bound(n: int, mode: str):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def b1_case(ak, ins, mode, n):
+    """B1 against its plain version at the gates' limits, its invalid tail
+    scored exactly 0, and a second launch on the same inputs bitwise equal
+    to the first; returns the max abs error of the scores."""
+    out = ak.attention_scores_fwd(*ins, mode=mode)
+    again = ak.attention_scores_fwd(*ins, mode=mode)
+    rs, rm, rss = ak.attention_scores_plain(*ins, mode=mode)
+    fs, fm, fss = ak.attention_scores_plain(*ins, mode="f32")
+    torch.cuda.synchronize()
+    s, m, ss = out
+    err = (s - rs).abs().max().item()
+    scale = rs.abs().max().item()
+    m_err = (m - rm).abs().max().item()
+    s_rel = ((ss - rss).abs() / rss).max().item()
+    same = all(torch.equal(a, b) for a, b in zip(out, again))
+    log(f"B1 n={n} mode={mode}: max_abs_err={err:.3e} (max|ref|={scale:.3e}, "
+        f"rel={err / scale:.3e}) m_err={m_err:.3e} s_relerr={s_rel:.3e}; against plain "
+        f"f32: rel={(s - fs).abs().max().item() / fs.abs().max().item():.3e} m_err="
+        f"{(m - fm).abs().max().item():.3e} s_relerr={((ss - fss).abs() / fss).max().item():.3e}"
+        f"; second launch bitwise equal: {same}")
+    if not same:
+        raise AssertionError(f"B1 at n={n} {mode}: a second launch on the same inputs differs")
+    if not (err <= TOL[mode] * scale):
+        raise AssertionError(f"B1 scores off at n={n} {mode}: {err} > {TOL[mode]} * {scale}")
+    if not (m_err <= STAT_TOL[mode] * rm.abs().max().item() and s_rel <= STAT_TOL[mode]):
+        raise AssertionError(f"B1 stats off at n={n} {mode}")
+    tail = n // 8  # b1_inputs' invalid tail
+    if not bool((s[n - tail:] == 0).all()):
+        raise AssertionError(f"B1 at n={n} {mode}: an invalid ray scored nonzero")
+    return err
+
+
+def softmax_mass_error(ak, ins, mode):
+    """max_p |sum_j P_pj - 1| read two ways. Kernel: B1 launched once per
+    patch with that patch alone in the mask, so that its scores are the
+    row P_pj = exp(l_pj - m_p) / s_p of the logits tile it shares with B2
+    (the same code, q'' fragments and feats pieces; B2's passes form the
+    same P_pj from it with B1's m and s), summed in float64. Plain: the
+    plain logits helper with B1's m and s (cuBLAS logits, which round
+    apart from the tile's)."""
+    q, feats, wk, bk, _, valid = ins
+    _, m, s = ak.attention_scores_fwd(*ins, mode=mode)
+    eye = torch.eye(P, device="cuda")
+    mass = torch.stack([ak.attention_scores_fwd(q, feats, wk, bk, eye[p], valid,
+                                                mode=mode)[0].double().sum()
+                        for p in range(P)])
+    kernel = (mass - 1).abs().max().item()
+    _, logits = ak._plain_logits(q, feats, wk, bk, valid, mode)
+    plain = (torch.exp(logits - m) / s).double().sum(1).sub(1).abs().max().item()
+    return kernel, plain
+
+
 def phase_kernels(ak, gen):
-    """B1 against its plain version on the card; returns the max abs error
-    at the main path's shape and mode."""
+    """B1 against its plain version on the card, and the probability mass
+    of the shared logits tile; returns the max abs error at the main
+    path's shape and mode."""
     main_err = None
     for n in KERNEL_NS:
         ins = b1_inputs(n, gen)
         for mode in ak.MODES:
-            s, m, ss = ak.attention_scores_fwd(*ins, mode=mode)
-            rs, rm, rss = ak.attention_scores_plain(*ins, mode=mode)
-            torch.cuda.synchronize()
-            err = (s - rs).abs().max().item()
-            scale = rs.abs().max().item()
-            m_err = (m - rm).abs().max().item()
-            s_rel = ((ss - rss).abs() / rss).max().item()
-            log(f"B1 n={n} mode={mode}: max_abs_err={err:.3e} (max|ref|={scale:.3e}, "
-                f"rel={err / scale:.3e}) m_err={m_err:.3e} s_relerr={s_rel:.3e}")
-            if not (err <= TOL[mode] * scale):
-                raise AssertionError(f"B1 scores off at n={n} {mode}: {err} > "
-                                     f"{TOL[mode]} * {scale}")
-            if not (m_err <= STAT_TOL[mode] * rm.abs().max().item()
-                    and s_rel <= STAT_TOL[mode]):
-                raise AssertionError(f"B1 stats off at n={n} {mode}")
+            err = b1_case(ak, ins, mode, n)
             if n == KERNEL_NS[0] and mode == "bf16_split3":
                 main_err = err
+            if n == KERNEL_NS[0]:
+                kernel, plain = softmax_mass_error(ak, ins, mode)
+                log(f"B1/B2 shared logits n={n} mode={mode}: max_p |sum_j P_pj - 1| "
+                    f"{kernel:.3e} (limit {MASS_TOL:.0e}); from the plain logits helper "
+                    f"{plain:.3e}")
+                if not kernel <= MASS_TOL:
+                    raise AssertionError(f"softmax mass off by {kernel} in {mode}")
+    # a ragged ray count with a zero-padded (invalid) tail
+    ins = b1_inputs(5000, gen)
+    for mode in ak.MODES:
+        b1_case(ak, ins, mode, 5000)
     return main_err
 
 
@@ -356,19 +433,6 @@ def b2_case(ak, ins, g, mode):
     return worst, out, " ".join(msgs + ["second launch bitwise equal"])
 
 
-def softmax_mass_error(ins, mode) -> float:
-    """max_p |sum_j P_pj - 1| with P from the reassociated logits (as B2
-    forms them) and m, s from B1 (which forms K): the two paths round
-    apart."""
-    from sixdgs_torch.ops import attention_kernel as ak
-
-    q, feats, wk, bk, pmask, valid = ins
-    _, m, s = ak.attention_scores_fwd(*ins, mode=mode)
-    logits = (ak._dot(q @ wk.T, feats.T, mode) + (q @ bk)[:, None]) / math.sqrt(D)
-    logits = torch.where(valid[None] > 0, logits, torch.full_like(logits, ak.NEG))
-    return (torch.exp(logits - m) / s).sum(1).sub(1).abs().max().item()
-
-
 def phase_b2(ak, gen):
     """B2 against its plain version; returns the max abs error at the main
     path's shape and mode."""
@@ -378,8 +442,7 @@ def phase_b2(ak, gen):
         g = torch.randn(n, generator=gen, device="cuda")
         for mode in ak.MODES:
             err, _, msg = b2_case(ak, ins, g, mode)
-            log(f"B2 n={n} mode={mode}: max_abs_err={err:.3e} (err/scale: {msg}); "
-                f"max_p |sum_j P_pj - 1| {softmax_mass_error(ins, mode):.2e}")
+            log(f"B2 n={n} mode={mode}: max_abs_err={err:.3e} (err/scale: {msg})")
             if n == KERNEL_NS[0] and mode == "bf16_split3":
                 main_err = err
     # every ray invalid: P = 1/N, and the unmasked dlog gives invalid rays
@@ -1203,14 +1266,19 @@ def main() -> int:
     ms = cuda_ms(lambda: ak.attention_scores_fused(*ins))
     plain_ms = cuda_ms(lambda: ak.attention_scores_plain(*ins, mode="bf16_split3"))
     bound_ms, bound_by = b1_bound(n, "bf16_split3")
-    # the kernel recomputes K and the logits in its second pass, so it
-    # executes twice the flops the bound counts (bench.py's formula)
-    log(f"B1 n={n}: needed {b1_flops(n) / 1e9:.2f} GFLOP with K, "
-        f"{b1_flops_reassociated(n) / 1e9:.2f} without (the bound's count, at "
-        f"{BF16_FLOPS_PER_S / PRODUCTS['bf16_split3'] / 1e12:.1f} TFLOP/s), executed "
-        f"{2 * b1_flops(n) / 1e9:.2f} GFLOP; split3 kernel at "
-        f"{2 * b1_flops(n) / ms / 1e9:.2f} TFLOP/s executed, "
-        f"{bound_ms / ms:.3f} of its bound")
+    # the emit pass recomputes the logits, so the kernel executes them twice
+    log(f"B1 n={n}: needed {b1_flops_reassociated(n) / 1e9:.2f} GFLOP (the bound's count, "
+        f"at {BF16_FLOPS_PER_S / PRODUCTS['bf16_split3'] / 1e12:.1f} TFLOP/s), executed "
+        f"{b1_executed_flops(n) / 1e9:.2f} GFLOP ({2 * 2 * P * n * D / 1e9:.2f} of them on "
+        f"the tensor cores, times 3 products in split3); the earlier design formed K and "
+        f"executed {2 * b1_flops_k_path(n) / 1e9:.2f} GFLOP in f32 FMA; split3 kernel at "
+        f"{b1_flops_reassociated(n) / ms / 1e9:.2f} TFLOP/s needed, "
+        f"{bound_ms / ms:.3f} of its bound ({bound_ms:.4f} ms, {bound_by})")
+    profile_run("B1 call (n=32768, split3)", lambda: ak.attention_scores_fused(*ins), ms,
+                shares=True)
+    log("B1 kernels (ptxas; dynamic shared memory of b1_stats and b1_emit: NP x 50,176 "
+        "bytes for NP bf16 pieces, <1> bf16, <2> split3, <3> f32): " + "; ".join(
+            ptxas_report(_build, "attention_scores")))
     times = {}
     for nn in KERNEL_NS:
         big = ins if nn == n else b1_inputs(nn, gen)
@@ -1264,9 +1332,11 @@ def main() -> int:
                 walls.append(1e3 * (time.perf_counter() - t0))
         per_image[label] = statistics.median(walls)
     log(f"eval_image ms per image (median of {3 * N_IMAGES}): " + json.dumps(per_image))
-    profile_run("fused eval_image",
-                lambda: eval_image(dino_model, id_module, images[0], masks[0], c2ws[0],
-                                   rays, fused_attention=True), per_image["fused"])
+    prof = profile_run("fused eval_image",
+                       lambda: eval_image(dino_model, id_module, images[0], masks[0], c2ws[0],
+                                          rays, fused_attention=True), per_image["fused"])
+    log(f"fused eval_image: device {prof['busy_ms']:.3f} ms, B1 {prof['b1_ms']:.3f} ms "
+        f"({100 * prof['b1_ms'] / prof['busy_ms']:.1f}%) of it")
     # one more step of each trainer, after the counted runs
     for label in ("fused", "plain"):
         trainer = trainers[label]
@@ -1353,7 +1423,8 @@ def main() -> int:
         f"total {time.perf_counter() - t_start:.1f} s")
 
     records = [{
-        "name": "B1 attention_scores_fused (_fwd_kernel_train; 3 CUDA kernels per launch)",
+        "name": "B1 attention_scores_fused (_fwd_kernel_train; 4 CUDA kernels per launch, "
+                "reassociated, mma.sync in bf16 pieces, one logits tile with B2)",
         "route": "cuda",
         "source": "sixdgs_torch/csrc/attention_scores.cu",
         "replaces": "sixdgs_tpu/ops/attention_kernel.py:116",
@@ -1368,7 +1439,7 @@ def main() -> int:
         # no single PyTorch call computes the masked softmax column sums
         "library_ms": None,
     }, {
-        "name": "B2 attention_scores_bwd (_bwd_kernel; 11 CUDA kernels per launch, "
+        "name": "B2 attention_scores_bwd (_bwd_kernel; 10 CUDA kernels per launch, "
                 "reassociated, mma.sync in bf16 pieces)",
         "route": "cuda",
         "source": "sixdgs_torch/csrc/attention_scores_bwd.cu",

@@ -2,41 +2,53 @@
 //
 // Replaces the TPU kernel sixdgs_tpu/ops/attention_kernel.py::_fwd_kernel_train
 // (launched by _fused_fwd_call_train). For q [P, D], ray features [N, D],
-// Wk [D, D] (in, out) and bk [D] it computes
+// Wk [D, D] (in, out), bk [D], pmask [P] and valid [N] it computes
 //
-//     K        = feats @ Wk + bk
-//     logits   = q K^T / sqrt(D), invalid rays -> NEG = -9e15
+//     logits   = q K^T / sqrt(D) with K = feats Wk + bk, invalid rays -> NEG
 //     m_p, s_p = max_j logits_pj, sum_j exp(logits_pj - m_p)
 //     score_j  = sum_p pmask_p exp(logits_pj - m_p) / s_p
 //
-// without ever writing the [P, N] logits (or K) to device memory.
+// reassociated so that K is never formed: q K^T = q'' feats^T + qb with
+// q'' = q Wk^T and qb = q bk. The logits tile is the one B2 (the backward,
+// attention_scores_bwd.cu) forms, from the same code (attention_tiles.cuh),
+// and neither the [P, N] logits nor anything [N, D]-sized is written to
+// device memory.
 //
 // The TPU kernel walks a sequential grid (2 passes, N/block) and carries the
-// per-patch (m, s) in VMEM scratch. Blocks on the card run in no order, so the
-// ray axis is split across CTAs instead:
-//   1. b1_stats:   each CTA owns BN rays, computes its K block and the
-//                  [P, BN] logits in registers, and writes per-patch partial
-//                  (max, sum-exp) to [P, nb];
-//   2. b1_combine: one CTA per patch folds the nb partials into m_p, s_p
-//                  (the [P] residuals the backward reads);
-//   3. b1_emit:    recomputes the K block and logits and writes the masked
-//                  column sums for its BN rays.
-// Every reduction runs in a fixed order, so results are deterministic.
+// per-patch (m, s) in VMEM scratch. Here the ray axis is split across at
+// most 132 CTAs, each a contiguous run of 64-ray blocks. CUDA kernels of one
+// launch, in order:
+//   1. b1_gemm_tile: q'' and qb in f32 FMA (qb as an extra column);
+//   2. b1_pack_q:    q'' into its bf16 pieces in mma fragment order;
+//   3. b1_stats:     per block, the feats pieces and the logits [256, 64] on
+//                    mma.sync, then per patch an online (max, sum-exp) over
+//                    the CTA's run, rescaling s when the max rises (the TPU
+//                    kernel's pass 0); rays past N take no part. One
+//                    [C][P] partial each for m and s;
+//   4. b1_emit:      every CTA first combines the C partials in CTA order
+//                    (m_p = max_c m_cp, s_p = sum_c s_cp exp(m_cp - m_p);
+//                    CTA 0 writes them out), then recomputes each block's
+//                    logits (the TPU kernel's pass 1) and writes the scores:
+//                    the patch sum over a warp by shuffles, the 8 warps'
+//                    partials in warp order through shared memory, one
+//                    writer per ray.
+// No float atomics: two launches agree bitwise. Shared memory: the block's
+// feats pieces (50,176 bytes per piece) and, in b1_emit, 4 KB of combined
+// stats and warp partials. Scratch (b1_scratch_floats): q'', qb, the A
+// fragments of q'' (room for 3 pieces, 589,824 bytes) and the m, s
+// partials: 1,246,208 bytes at N = 32,768 and at N = 131,072 (128 CTAs at
+// both).
 //
-// Bound: the function needs 2 * (N D^2 + P N D) flops (16.1 GFLOP at
-// N = 32768, D = 384) against ~2 N D * 4 bytes of traffic, so it is bound by
-// compute on the card: 0.240 ms at the 67 TFLOP/s f32 peak. This kernel
-// executes twice those flops, since b1_emit recomputes K and the logits (as
-// the TPU kernel's second pass does).
-// This first version stages tiles in shared memory and runs plain f32 FMA on
-// the CUDA cores with a 4x12 / 4x8 register tile per thread; tensor cores
-// (wgmma) and TMA are left for a later version. The tile code (block_logits)
-// is in attention_tiles.cuh, shared with the backward kernel (B2).
+// Bound: the function needs 2 (P N D + P D^2) flops (the logits; q''),
+// 6.52 GFLOP at N = 32,768: bound by operations at the bf16 tensor-core
+// rate divided by the products of the mode (1, 3 or 6). This kernel
+// executes 2 (2 P N D) on the tensor cores, times the products of the mode,
+// because the emit pass recomputes the logits, and 2 P D (D + 1) in f32 FMA.
 //
-// Precision: "f32" and "bf16_split3" both run as plain f32 FMA here (split3
-// exists to get f32-class accuracy out of a bf16 MXU). "bf16" rounds every
-// matmul operand (feats, Wk, q and K) to bf16 with round-to-nearest-even and
-// accumulates in f32, as the TPU kernel's bf16 mode does. No TF32 anywhere.
+// Precision (NP pieces per operand, mma_pieces.cuh): "bf16" rounds q'' and
+// feats to bf16 once (the TPU kernel rounds feats, Wk, q and K instead);
+// "bf16_split3" (the default) the TPU kernel's hi/lo split, 3 products;
+// "f32" three pieces, 6 products. q'', qb and the softmax are f32.
 
 #include "attention_tiles.cuh"
 
@@ -44,189 +56,250 @@ namespace {
 
 using namespace attn;
 
-template <int D, bool BF16>
-__global__ void __launch_bounds__(THREADS)
-b1_stats(const float* __restrict__ q_t, const float* __restrict__ feats,
-         const float* __restrict__ wk, const float* __restrict__ bk,
-         const float* __restrict__ valid, int n, float sqrt_d,
-         float* __restrict__ m_part, float* __restrict__ s_part) {
+// s exp(m - m_new), where s = 0 stands for no ray yet (m = -inf).
+__device__ __forceinline__ float rescale(float s, float m, float m_new) {
+  return s == 0.f ? 0.f : s * expf(m - m_new);
+}
+
+// Per-CTA partial (max, sum-exp) of every patch over the CTA's run of ray
+// blocks: m_part, s_part [C][P].
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+b1_stats(const uint4* __restrict__ qa, const float* __restrict__ qb_in,
+         const float* __restrict__ feats, const float* __restrict__ valid, int n,
+         float sqrt_d, float* __restrict__ m_part, float* __restrict__ s_part) {
   extern __shared__ float4 smem4[];
-  float* r1 = reinterpret_cast<float*>(smem4);
-  float* r2 = r1 + region1_floats<D>();
-  const int nb = gridDim.x;
-  const int b = blockIdx.x;
-  const int r0 = b * BN;
-  float acc[4][8];
-  block_logits<D, BF16>(q_t, feats, wk, bk, valid, n, r0, sqrt_d, r1, r2, acc);
+  __nv_bfloat16* fp = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const int t = threadIdx.x % 4;
+  int b_begin, b_end;
+  cta_blocks(n, b_begin, b_end);
+  float qb[4], m[4], s[4];
+  load_rows(qb_in, qb);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    m[k] = -INFINITY;
+    s[k] = 0.f;
+  }
 
-  const int tid = threadIdx.x;
-  const int pg = tid / 4;
-  const int rg = tid % 4;
+  for (int b = b_begin; b < b_end; ++b) {
+    const int r0 = b * BN;
+    __syncthreads();  // the last block's reads of fp are done
+    stage_feats<NP>(feats, n, r0, fp);
+    __syncthreads();
+    float acc[2][8][4];
+    block_logits<NP>(qa, fp, qb, valid, n, r0, sqrt_d, acc);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    // rays past N take no part; ray r0 is always in range, so the combined
-    // max over the 4 lanes of a patch is finite
-    float m = -INFINITY;
+    for (int k = 0; k < 4; ++k) {
+      float mb = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (r0 + rg * 8 + j < n) m = fmaxf(m, acc[i][j]);
+      for (int nj = 0; nj < 8; ++nj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (r0 + 8 * nj + 2 * t + e < n) mb = fmaxf(mb, acc[k / 2][nj][e + 2 * (k % 2)]);
+        }
+      }
+      if (mb > m[k]) {
+        s[k] = rescale(s[k], m[k], mb);
+        m[k] = mb;
+      }
+#pragma unroll
+      for (int nj = 0; nj < 8; ++nj) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (r0 + 8 * nj + 2 * t + e < n) s[k] += expf(acc[k / 2][nj][e + 2 * (k % 2)] - m[k]);
+        }
+      }
     }
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    float s = 0.f;
+  }
+  // over the 4 lanes t of a row group, in a fixed order; lane t = 0 saw the
+  // CTA's first ray, so every row ends with a finite m and s >= 1
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (r0 + rg * 8 + j < n) s += expf(acc[i][j] - m);
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int off = 1; off <= 2; off *= 2) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[k], off);
+      const float so = __shfl_xor_sync(0xffffffffu, s[k], off);
+      const float mn = fmaxf(m[k], mo);
+      s[k] = rescale(s[k], m[k], mn) + rescale(so, mo, mn);
+      m[k] = mn;
     }
-    s += __shfl_xor_sync(0xffffffffu, s, 1);
-    s += __shfl_xor_sync(0xffffffffu, s, 2);
-    if (rg == 0) {
-      const int p = pg * 4 + i;
-      m_part[(size_t)p * nb + b] = m;
-      s_part[(size_t)p * nb + b] = s;
+    if (t == 0) {
+      m_part[(size_t)blockIdx.x * P + my_patch(k)] = m[k];
+      s_part[(size_t)blockIdx.x * P + my_patch(k)] = s[k];
     }
   }
 }
 
-// One CTA per patch: m_p = max_b m_bp, s_p = sum_b s_bp exp(m_bp - m_p).
-__global__ void __launch_bounds__(THREADS)
-b1_combine(const float* __restrict__ m_part, const float* __restrict__ s_part,
-           int nb, float* __restrict__ m_out, float* __restrict__ s_out) {
-  __shared__ float red[THREADS];
-  const int p = blockIdx.x;
-  const int tid = threadIdx.x;
-  const float* mp = m_part + (size_t)p * nb;
-  const float* sp = s_part + (size_t)p * nb;
-
-  float m = -INFINITY;
-  for (int b = tid; b < nb; b += THREADS) m = fmaxf(m, mp[b]);
-  red[tid] = m;
-  __syncthreads();
-  for (int w = THREADS / 2; w > 0; w /= 2) {
-    if (tid < w) red[tid] = fmaxf(red[tid], red[tid + w]);
-    __syncthreads();
-  }
-  const float mall = red[0];
-  __syncthreads();
-
-  float s = 0.f;
-  for (int b = tid; b < nb; b += THREADS) s += sp[b] * expf(mp[b] - mall);
-  red[tid] = s;
-  __syncthreads();
-  for (int w = THREADS / 2; w > 0; w /= 2) {
-    if (tid < w) red[tid] += red[tid + w];
-    __syncthreads();
-  }
-  if (tid == 0) {
-    m_out[p] = mall;
-    s_out[p] = red[0];
-  }
-}
-
-template <int D, bool BF16>
-__global__ void __launch_bounds__(THREADS)
-b1_emit(const float* __restrict__ q_t, const float* __restrict__ feats,
-        const float* __restrict__ wk, const float* __restrict__ bk,
-        const float* __restrict__ pmask, const float* __restrict__ valid,
-        const float* __restrict__ m_in, const float* __restrict__ s_in, int n,
-        float sqrt_d, float* __restrict__ scores) {
+// The combined stats, then the scores of the CTA's run of ray blocks.
+template <int NP>
+__global__ void __launch_bounds__(THREADS, 1)
+b1_emit(const uint4* __restrict__ qa, const float* __restrict__ qb_in,
+        const float* __restrict__ feats, const float* __restrict__ pmask,
+        const float* __restrict__ valid, const float* __restrict__ m_part,
+        const float* __restrict__ s_part, int n, float sqrt_d, float* __restrict__ scores,
+        float* __restrict__ m_out, float* __restrict__ s_out) {
   extern __shared__ float4 smem4[];
-  float* r1 = reinterpret_cast<float*>(smem4);
-  float* r2 = r1 + region1_floats<D>();
-  const int r0 = blockIdx.x * BN;
-  float acc[4][8];
-  block_logits<D, BF16>(q_t, feats, wk, bk, valid, n, r0, sqrt_d, r1, r2, acc);
-
-  const int tid = threadIdx.x;
-  const int pg = tid / 4;
-  const int rg = tid % 4;
-  float col[8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j) col[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = pg * 4 + i;
-    const float m = m_in[p];
-    const float s = s_in[p];
-    const float pm = pmask[p];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) col[j] += expf(acc[i][j] - m) / s * pm;
+  __shared__ float stats[2][P];
+  __shared__ float part[THREADS / 32][BN];
+  __nv_bfloat16* fp = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  static_assert(THREADS == P, "one thread per patch combines the partials");
+  {
+    const int p = threadIdx.x;
+    const int nc = gridDim.x;
+    float mm = -INFINITY, ss = 0.f;
+    for (int c = 0; c < nc; ++c) mm = fmaxf(mm, m_part[(size_t)c * P + p]);
+    for (int c = 0; c < nc; ++c) {
+      ss += rescale(s_part[(size_t)c * P + p], m_part[(size_t)c * P + p], mm);
+    }
+    stats[0][p] = mm;
+    stats[1][p] = ss;
+    if (blockIdx.x == 0) {
+      m_out[p] = mm;
+      s_out[p] = ss;
+    }
   }
-  // column sums over the 64 patch groups, in a fixed order (r1 is free: the
-  // last read of K^T finished before block_logits returned)
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r1[pg * BN + rg * 8 + j] = col[j];
   __syncthreads();
-  if (tid < BN && r0 + tid < n) {
-    float sum = 0.f;
-    for (int g = 0; g < P / 4; ++g) sum += r1[g * BN + tid];
-    scores[r0 + tid] = sum;
+  float qb[4], m[4], s[4], pm[4];
+  load_rows(qb_in, qb);
+  load_rows(pmask, pm);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    m[k] = stats[0][my_patch(k)];
+    s[k] = stats[1][my_patch(k)];
+  }
+  int b_begin, b_end;
+  cta_blocks(n, b_begin, b_end);
+
+  for (int b = b_begin; b < b_end; ++b) {
+    const int r0 = b * BN;
+    __syncthreads();  // the last block's reads of fp and part are done
+    stage_feats<NP>(feats, n, r0, fp);
+    __syncthreads();
+    float acc[2][8][4];
+    block_logits<NP>(qa, fp, qb, valid, n, r0, sqrt_d, acc);
+#pragma unroll
+    for (int nj = 0; nj < 8; ++nj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float col = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          col += expf(acc[k / 2][nj][e + 2 * (k % 2)] - m[k]) / s[k] * pm[k];
+        }
+        // over the 8 lanes g that share t (the warp's 32 patches)
+        col += __shfl_xor_sync(0xffffffffu, col, 4);
+        col += __shfl_xor_sync(0xffffffffu, col, 8);
+        col += __shfl_xor_sync(0xffffffffu, col, 16);
+        if (g == 0) part[warp][8 * nj + 2 * t + e] = col;
+      }
+    }
+    __syncthreads();
+    const int ray = threadIdx.x;
+    if (ray < BN && r0 + ray < n) {
+      float sum = 0.f;
+#pragma unroll
+      for (int w = 0; w < THREADS / 32; ++w) sum += part[w][ray];
+      scores[r0 + ray] = sum;
+    }
   }
 }
 
-template <int D, bool BF16>
-cudaError_t launch(const float* q_t, const float* feats, const float* wk,
-                   const float* bk, const float* pmask, const float* valid,
-                   float* scores, float* m_out, float* s_out, float* m_part,
-                   float* s_part, int n, float sqrt_d, cudaStream_t stream) {
-  const int nb = (n + BN - 1) / BN;
-  const size_t smem = smem_bytes<D>();
+// The shared prologue code (attention_tiles.cuh) under this kernel's names.
+template <int NP>
+__global__ void __launch_bounds__(THREADS)
+b1_pack_q(const float* __restrict__ qpp, uint4* __restrict__ qa) {
+  attn::pack_q<NP, false>(qpp, qa, nullptr);
+}
+
+__global__ void __launch_bounds__(GT)
+b1_gemm_tile(const float* __restrict__ a, int a_sm, int a_sk, const float* __restrict__ b,
+             int ldb, int M, int K, int ncols, const float* __restrict__ u,
+             const float* __restrict__ v, float* __restrict__ out, const float* __restrict__ bx,
+             float* __restrict__ out_x) {
+  attn::gemm_tile(a, a_sm, a_sk, b, ldb, M, K, ncols, u, v, out, bx, out_x);
+}
+
+struct Args {
+  const float *q, *feats, *wk_t, *bk, *pmask, *valid;
+  float *scores, *m, *s;
+  float *qpp, *qb, *frags, *m_part, *s_part;
+  int n;
+  float sqrt_d;
+  cudaStream_t stream;
+};
+
+template <int NP>
+cudaError_t launch(const Args& x) {
+  const int n = x.n;
+  const int nc = n_ctas(n);
+  const size_t smem = smem_bytes<NP>();
   cudaError_t err = cudaFuncSetAttribute(
-      b1_stats<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      b1_stats<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(
-      b1_emit<D, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = cudaFuncSetAttribute(b1_emit<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return err;
+  uint4* qa = reinterpret_cast<uint4*>(x.frags);
 
-  b1_stats<D, BF16><<<nb, THREADS, smem, stream>>>(q_t, feats, wk, bk, valid, n,
-                                                   sqrt_d, m_part, s_part);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  b1_combine<<<P, THREADS, 0, stream>>>(m_part, s_part, nb, m_out, s_out);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  b1_emit<D, BF16><<<nb, THREADS, smem, stream>>>(
-      q_t, feats, wk, bk, pmask, valid, m_out, s_out, n, sqrt_d, scores);
+  // prologue: q'' = q Wk^T (b = Wk^T row-major) with qb = q bk, the pieces
+  b1_gemm_tile<<<gemm_grid(P, D, true), GT, 0, x.stream>>>(
+      x.q, D, 1, x.wk_t, D, P, D, D, nullptr, nullptr, x.qpp, x.bk, x.qb);
+  if ((err = cudaGetLastError())) return err;
+  b1_pack_q<NP><<<PT * KT * 32 / THREADS, THREADS, 0, x.stream>>>(x.qpp, qa);
+  if ((err = cudaGetLastError())) return err;
+
+  b1_stats<NP><<<nc, THREADS, smem, x.stream>>>(qa, x.qb, x.feats, x.valid, n, x.sqrt_d,
+                                                  x.m_part, x.s_part);
+  if ((err = cudaGetLastError())) return err;
+  b1_emit<NP><<<nc, THREADS, smem, x.stream>>>(qa, x.qb, x.feats, x.pmask, x.valid,
+                                                 x.m_part, x.s_part, n, x.sqrt_d, x.scores,
+                                                 x.m, x.s);
   return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t launch_mode(int bf16, const float* q_t, const float* feats,
-                        const float* wk, const float* bk, const float* pmask,
-                        const float* valid, float* scores, float* m_out,
-                        float* s_out, float* m_part, float* s_part, int n,
-                        float sqrt_d, cudaStream_t stream) {
-  if (bf16) {
-    return launch<D, true>(q_t, feats, wk, bk, pmask, valid, scores, m_out,
-                           s_out, m_part, s_part, n, sqrt_d, stream);
-  }
-  return launch<D, false>(q_t, feats, wk, bk, pmask, valid, scores, m_out,
-                          s_out, m_part, s_part, n, sqrt_d, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rays per CTA: the caller sizes the [P, nb] partial buffers with it.
-int b1_rays_per_block() { return BN; }
+// Scratch for n rays: b1_scratch_floats(n) floats in one buffer, carved by
+// the launcher into 16-byte aligned pieces.
+long long b1_scratch_floats(int n) {
+  const long long nc = n_ctas(n);
+  return (long long)P * D + P + 4 * qa_uint4s<3>() + 2 * nc * P;
+}
 
 // All pointers are device pointers to contiguous float32, 16-byte aligned:
-// q_t [d, 256] (q transposed), feats [n, d], wk [d, d] (in, out), bk [d],
-// pmask [256], valid [n] (> 0 means valid), scores [n], m_out / s_out [256],
-// m_part / s_part [256, ceil(n / 32)]. Returns the first CUDA error (0 when
-// every launch was accepted).
-int b1_attention_scores_fwd(const float* q_t, const float* feats,
-                            const float* wk, const float* bk,
-                            const float* pmask, const float* valid,
-                            float* scores, float* m_out, float* s_out,
-                            float* m_part, float* s_part, int n, int d, int p,
-                            int bf16, float sqrt_d, void* stream) {
-  if (p != P || n <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (d != 384) return (int)cudaErrorInvalidValue;  // DINOv2-S width only
-  return (int)launch_mode<384>(bf16, q_t, feats, wk, bk, pmask, valid, scores,
-                               m_out, s_out, m_part, s_part, n, sqrt_d, st);
+// q [256, d], feats [n, d], wk_t [d, d] (Wk^T: (out, in)), bk [d],
+// pmask [256], valid [n] (> 0 means valid); outputs scores [n], m / s
+// [256]; scratch of b1_scratch_floats(n) floats. mode: 0 "bf16",
+// 1 "bf16_split3", 2 "f32". Returns the first CUDA error (0 when every
+// launch was accepted).
+int b1_attention_scores_fwd(const float* q, const float* feats, const float* wk_t,
+                            const float* bk, const float* pmask, const float* valid,
+                            float* scores, float* m, float* s, float* scratch, int n, int d,
+                            int p, int mode, float sqrt_d, void* stream) {
+  if (p != P || d != D || n <= 0 || mode < 0 || mode > 2) return (int)cudaErrorInvalidValue;
+  const long long nc = n_ctas(n);
+  Args x{q, feats, wk_t, bk, pmask, valid, scores, m, s};
+  float* at = scratch;
+  auto take = [&at](long long count) {
+    float* out = at;
+    at += (count + 3) / 4 * 4;
+    return out;
+  };
+  x.qpp = take((long long)P * D);
+  x.qb = take(P);
+  x.frags = take(4 * qa_uint4s<3>());
+  x.m_part = take(nc * P);
+  x.s_part = take(nc * P);
+  x.n = n;
+  x.sqrt_d = sqrt_d;
+  x.stream = static_cast<cudaStream_t>(stream);
+  if (mode == 0) return (int)launch<1>(x);
+  if (mode == 1) return (int)launch<2>(x);
+  return (int)launch<3>(x);
 }
 
 }  // extern "C"

@@ -22,36 +22,36 @@
 // nonzero dfeats. The ray stream carries three P N D products (the logits,
 // dfeats and A; the logits twice), no N D^2 product.
 //
+// The logits are B1's: q'', qb, the feats pieces and the mma.sync tile
+// come from attention_tiles.cuh, which both kernels include, so B1's m and
+// s are the residuals of these very logits.
+//
 // CUDA kernels of one launch, in order (no float atomics anywhere: every
 // cross-CTA sum is taken in a fixed order, so two launches agree bitwise):
-//   1. b2_gemm_tile x2: q'' and qb, f32 FMA on the CUDA cores;
-//   2. b2_pack_q:       q'' split into bf16 pieces (mma_pieces.cuh), stored
-//                       in mma fragment order twice: as the A operand of the
-//                       logits and as the B operand of dfeats; every CTA
-//                       then reads its fragments from L2 with one 16- or
-//                       8-byte load per lane;
-//   3. b2_c:            at most 132 CTAs, each walking a contiguous run of
-//                       64-ray blocks: the block's feats split once into
-//                       bf16 pieces in shared memory, logits [256, 64] by
-//                       mma.sync (B operands by ldmatrix), c partials;
-//   4. b2_sum_parts:    c, summing the CTA partials in order;
-//   5. b2_grad:         the same CTAs and runs: logits again, dlog in
-//                       registers, A += dlog feats (dlog's A fragments
-//                       straight from the logits' accumulators, feats' B
-//                       fragments by transposed ldmatrix) into the CTA's
-//                       [P, D] partial in device memory, 32 columns at a
-//                       time; then the dlog pieces over the feats pieces
-//                       and dfeats = dlog^T q'' (transposed ldmatrix);
+//   1. b2_gemm_tile: q'' and qb (gemm_tile with qb as an extra column);
+//   2. b2_pack_q:    q'' into its bf16 pieces in mma fragment order, as the
+//                    A operand of the logits and as the B operand of dfeats;
+//   3. b2_c:         the ray-pass CTAs (at most 132, each a contiguous run
+//                    of 64-ray blocks): stage_feats, block_logits, c
+//                    partials;
+//   4. b2_sum_parts: c, summing the CTA partials in order;
+//   5. b2_grad:      the same CTAs and runs: logits again, dlog in
+//                    registers, A += dlog feats (dlog's A fragments
+//                    straight from the logits' accumulators, feats' B
+//                    fragments by transposed ldmatrix) into the CTA's
+//                    [P, D] partial in device memory, 32 columns at a
+//                    time; then the dlog pieces over the feats pieces
+//                    and dfeats = dlog^T q'' (transposed ldmatrix);
 //   6. b2_sum_parts x2: A and r, summing the CTA partials in order;
 //   7. b2_gemm_tile x3: dq, dWk and dbk, f32 FMA on the CUDA cores.
 // The feats tile goes through registers into shared memory (split once per
 // CTA) instead of cp.async: splitting the f32 tile inside every warp cost
 // more than the copy's overlap saved (0.665-0.680 against 0.690-0.712 ms at
-// N = 32,768 in split3 on an H100 SXM at 700 W). Shared memory: the block's feats pieces,
-// 50,176 bytes per piece (the dlog pieces reuse it). Scratch (the wrapper
-// allocates it): q'' and qb, fragment copies of q'' (1.18 MB), c, A and r
-// partials for C <= 132 CTAs (128 at both sizes below), A, c and r:
-// 52.6 MB at N = 32,768 and at N = 131,072 (D = 384).
+// N = 32,768 in split3 on an H100 SXM at 700 W). Shared memory: the block's
+// feats pieces, 50,176 bytes per piece (the dlog pieces reuse it). Scratch
+// (the wrapper allocates it): q'' and qb, fragment copies of q'' (1.18 MB),
+// c, A and r partials for C <= 132 CTAs (128 at both sizes below), A, c
+// and r: 52.6 MB at N = 32,768 and at N = 131,072 (D = 384).
 //
 // Bound: the function needs 2 (3 P N D + 3 P D^2) flops (the logits,
 // dfeats, A; q'', dq, dWk): 19.56 GFLOP at N = 32,768. At the bf16
@@ -65,157 +65,14 @@
 // kernel's hi/lo split, 3 products; "f32" three pieces, 6 products. The
 // prologue and epilogue products are f32 FMA in every mode.
 
-#include "mma_pieces.cuh"
-
-#include <math.h>
+#include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int P = 256;         // image patches (16 x 16 DINOv2 grid)
-constexpr int D = 384;         // DINOv2-S width
-constexpr int BN = 64;         // rays per block
-constexpr int THREADS = 256;   // 8 warps; warp w owns patches 32w..32w+31
-constexpr int NCTA = 132;      // most CTAs of the ray passes (one per SM)
-constexpr int FS = D + 8;      // row stride (bf16) of a feats piece [BN][FS]
-constexpr int LS = BN + 8;     // row stride (bf16) of a dlog piece [P][LS]
-constexpr int KT = D / 16;     // k tiles of the logits (24)
-constexpr int PT = P / 16;     // patch tiles (16)
-constexpr int NT = D / 8;      // column tiles of dfeats and A (48)
-constexpr float NEG = -9e15f;  // the TPU kernel's mask value (not -inf)
-static_assert(D % 64 == 0 && P == 32 * (THREADS / 32), "warp tiling");
+using namespace attn;
+
+constexpr int LS = BN + 8;  // row stride (bf16) of a dlog piece [P][LS]
 static_assert(P * LS <= BN * FS, "a dlog piece fits where a feats piece was");
-
-// Shared memory of both ray passes: the block's feats pieces [NP][BN][FS],
-// over which b2_grad later writes the dlog pieces [NP][P][LS].
-template <int NP>
-constexpr size_t smem_bytes() {
-  return sizeof(__nv_bfloat16) * NP * BN * FS;
-}
-
-__host__ __device__ inline int blocks_per_cta(int n) {
-  const int nb = (n + BN - 1) / BN;
-  return (nb + NCTA - 1) / NCTA;
-}
-
-__host__ __device__ inline int n_ctas(int n) {
-  const int nb = (n + BN - 1) / BN;
-  const int per = blocks_per_cta(n);
-  return (nb + per - 1) / per;
-}
-
-// Rays [r0, r0 + BN) of feats [n, D] into their bf16 pieces fp [NP][BN][FS],
-// each value split once per CTA; rays past n are zero. Six float4 loads per
-// thread are in flight before the first is split.
-template <int NP>
-__device__ __forceinline__ void stage_feats(const float* __restrict__ feats, int n, int r0,
-                                            __nv_bfloat16* fp) {
-  constexpr int PER = BN * D / 4 / THREADS;  // float4 per thread (24)
-  constexpr int BATCH = 6;
-  static_assert(PER % BATCH == 0, "whole batches");
-#pragma unroll
-  for (int b0 = 0; b0 < PER; b0 += BATCH) {
-    float4 v[BATCH];
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int idx = threadIdx.x + THREADS * (b0 + j);
-      const int r = idx / (D / 4), c4 = idx % (D / 4);
-      v[j] = r0 + r < n ? reinterpret_cast<const float4*>(feats + (size_t)(r0 + r) * D)[c4]
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int j = 0; j < BATCH; ++j) {
-      const int idx = threadIdx.x + THREADS * (b0 + j);
-      const int r = idx / (D / 4), c4 = idx % (D / 4);
-      uint32_t lo[NP], hi[NP];
-      mma::split2<NP>(v[j].x, v[j].y, lo);
-      mma::split2<NP>(v[j].z, v[j].w, hi);
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        *reinterpret_cast<uint2*>(fp + (i * BN + r) * FS + 4 * c4) = make_uint2(lo[i], hi[i]);
-      }
-    }
-  }
-}
-
-// The block's logits [32 patches of warp w][BN rays] in C-fragment order:
-// acc[mi][nj] holds patches 32w + 16mi + g (+8) and rays 8nj + 2t (+1).
-// q'' comes from its packed A fragments qa [NP][PT][KT][32] (uint4), feats
-// from its pieces fp by ldmatrix. Invalid rays and rays past n are NEG.
-template <int NP>
-__device__ __forceinline__ void block_logits(const uint4* __restrict__ qa,
-                                             const __nv_bfloat16* fp, const float (&qb)[4],
-                                             const float* __restrict__ valid, int n, int r0,
-                                             float sqrt_d, float (&acc)[2][8][4]) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int t = lane % 4, mat = lane / 8;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int nj = 0; nj < 8; ++nj) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nj][e] = 0.f;
-    }
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    uint32_t a[2][NP][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        const uint4 v = qa[((size_t)(i * PT + 2 * warp + mi) * KT + kt) * 32 + lane];
-        a[mi][i][0] = v.x;
-        a[mi][i][1] = v.y;
-        a[mi][i][2] = v.z;
-        a[mi][i][3] = v.w;
-      }
-    }
-#pragma unroll
-    for (int nj = 0; nj < 8; nj += 2) {
-      // B fragments of ray tiles nj and nj + 1: matrices (rays, k) (rays,
-      // k + 8) (rays + 8, k) (rays + 8, k + 8) of the [ray][d] piece
-      uint32_t b[2][NP][2];
-#pragma unroll
-      for (int i = 0; i < NP; ++i) {
-        uint32_t r[4];
-        mma::ldmatrix_x4(r, fp + (i * BN + 8 * nj + lane % 8 + 8 * (mat / 2)) * FS + 16 * kt +
-                                8 * (mat % 2));
-        b[0][i][0] = r[0];
-        b[0][i][1] = r[1];
-        b[1][i][0] = r[2];
-        b[1][i][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        mma::mma_pieces<NP>(acc[mi][nj], a[mi], b[0]);
-        mma::mma_pieces<NP>(acc[mi][nj + 1], a[mi], b[1]);
-      }
-    }
-  }
-#pragma unroll
-  for (int nj = 0; nj < 8; ++nj) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int r = r0 + 8 * nj + 2 * t + e;
-      const bool ok = r < n && valid[r] > 0.f;
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        acc[mi][nj][e] = ok ? (acc[mi][nj][e] + qb[2 * mi]) / sqrt_d : NEG;
-        acc[mi][nj][e + 2] = ok ? (acc[mi][nj][e + 2] + qb[2 * mi + 1]) / sqrt_d : NEG;
-      }
-    }
-  }
-}
-
-// This thread's four patches: 32w + 16mi + g + 8h at index 2mi + h.
-__device__ __forceinline__ int my_patch(int k) {
-  const int warp = threadIdx.x / 32, g = (threadIdx.x % 32) / 4;
-  return 32 * warp + 16 * (k / 2) + g + 8 * (k % 2);
-}
-
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, float (&out)[4]) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) out[k] = src[my_patch(k)];
-}
 
 // Sum of a per-thread row value over the 4 lanes t of its row group, in a
 // fixed order, then one write per row.
@@ -239,10 +96,8 @@ b2_c(const uint4* __restrict__ qa, const float* __restrict__ qb_in,
   extern __shared__ float4 smem4[];
   __nv_bfloat16* fp = reinterpret_cast<__nv_bfloat16*>(smem4);
   const int t = threadIdx.x % 4;
-  const int nb = (n + BN - 1) / BN;
-  const int per = blocks_per_cta(n);
-  const int b_begin = blockIdx.x * per;
-  const int b_end = min(nb, b_begin + per);
+  int b_begin, b_end;
+  cta_blocks(n, b_begin, b_end);
   float qb[4], m[4], s[4], c[4] = {0.f, 0.f, 0.f, 0.f};
   load_rows(qb_in, qb);
   load_rows(m_in, m);
@@ -289,10 +144,8 @@ b2_grad(const uint4* __restrict__ qa, const uint2* __restrict__ qbf,
   __nv_bfloat16* dl = fp;                                        // [NP][P][LS], later
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4, mat = lane / 8;
-  const int nb = (n + BN - 1) / BN;
-  const int per = blocks_per_cta(n);
-  const int b_begin = blockIdx.x * per;
-  const int b_end = min(nb, b_begin + per);
+  int b_begin, b_end;
+  cta_blocks(n, b_begin, b_end);
   float* ap = a_part + (size_t)blockIdx.x * P * D;
   const float inv_sqrt_d = 1.f / sqrt_d;
   float qb[4], m[4], s[4], c[4], pm[4], r[4] = {0.f, 0.f, 0.f, 0.f};
@@ -478,88 +331,26 @@ b2_grad(const uint4* __restrict__ qa, const uint2* __restrict__ qbf,
   write_rows(r, r_part + (size_t)blockIdx.x * P);
 }
 
-// q'' [P][D] into its bf16 pieces in fragment order: qa [NP][PT][KT][32]
-// (uint4, the logits' A operand: patches x d) and qbf [NP][PT][NT][32]
-// (uint2, dfeats' B operand: patches (k) x d (n)). One thread per lane of
-// one fragment.
+// The shared prologue and partial-sum code (attention_tiles.cuh) under
+// this kernel's names.
 template <int NP>
 __global__ void __launch_bounds__(THREADS)
 b2_pack_q(const float* __restrict__ qpp, uint4* __restrict__ qa, uint2* __restrict__ qbf) {
-  const int idx = blockIdx.x * THREADS + threadIdx.x;
-  const int lane = idx % 32, frag = idx / 32;
-  const int g = lane / 4, t = lane % 4;
-  if (frag < PT * KT) {
-    const int mt = frag / KT, kt = frag % KT;
-    const float* r0 = qpp + (size_t)(16 * mt + g) * D + 16 * kt + 2 * t;
-    const float* r1 = r0 + 8 * D;
-    uint32_t x0[NP], x1[NP], x2[NP], x3[NP];
-    mma::split2<NP>(r0[0], r0[1], x0);
-    mma::split2<NP>(r1[0], r1[1], x1);
-    mma::split2<NP>(r0[8], r0[9], x2);
-    mma::split2<NP>(r1[8], r1[9], x3);
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      qa[((size_t)(i * PT + mt) * KT + kt) * 32 + lane] = make_uint4(x0[i], x1[i], x2[i], x3[i]);
-    }
-  } else if (frag < PT * KT + PT * NT) {
-    const int f = frag - PT * KT;
-    const int kt = f / NT, nt = f % NT;
-    const float* col = qpp + (size_t)(16 * kt + 2 * t) * D + 8 * nt + g;
-    uint32_t x0[NP], x1[NP];
-    mma::split2<NP>(col[0], col[D], x0);
-    mma::split2<NP>(col[8 * D], col[9 * D], x1);
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      qbf[((size_t)(i * PT + kt) * NT + nt) * 32 + lane] = make_uint2(x0[i], x1[i]);
-    }
-  }
+  attn::pack_q<NP, true>(qpp, qa, qbf);
 }
-
-// out [M][ncols] = a b (+ u v^T), f32 FMA in k order: a is [M][K] read as
-// a[m * a_sm + k * a_sk], b [K][ldb] row-major, u [M] and v [ncols]
-// optional. One 16 x 16 output tile per CTA and one output per thread, k
-// staged 16 at a time (384-576 CTAs for the [256 or 384, 384] products).
-constexpr int GTILE = 16;
-constexpr int GT = GTILE * GTILE;
 
 __global__ void __launch_bounds__(GT)
 b2_gemm_tile(const float* __restrict__ a, int a_sm, int a_sk, const float* __restrict__ b,
              int ldb, int M, int K, int ncols, const float* __restrict__ u,
-             const float* __restrict__ v, float* __restrict__ out) {
-  __shared__ float as[GTILE][GTILE + 1];  // [k][m]
-  __shared__ float bs[GTILE][GTILE];      // [k][n]
-  const int ty = threadIdx.x / GTILE, tx = threadIdx.x % GTILE;
-  const int m = blockIdx.y * GTILE + ty, n = blockIdx.x * GTILE + tx;
-  // a is staged along its contiguous axis: k when a_sk = 1, else m
-  const bool k_fast = a_sk == 1;
-  const int am = blockIdx.y * GTILE + (k_fast ? ty : tx);
-  const int ak = k_fast ? tx : ty;
-  float acc = 0.f;
-  for (int k0 = 0; k0 < K; k0 += GTILE) {
-    const float av = am < M && k0 + ak < K ? a[(size_t)am * a_sm + (size_t)(k0 + ak) * a_sk] : 0.f;
-    if (k_fast) {
-      as[tx][ty] = av;
-    } else {
-      as[ty][tx] = av;
-    }
-    bs[ty][tx] = k0 + ty < K && n < ncols ? b[(size_t)(k0 + ty) * ldb + n] : 0.f;
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GTILE; ++k) acc = fmaf(as[k][ty], bs[k][tx], acc);
-    __syncthreads();
-  }
-  if (m < M && n < ncols) out[(size_t)m * ncols + n] = acc + (u ? u[m] * v[n] : 0.f);
+             const float* __restrict__ v, float* __restrict__ out, const float* __restrict__ bx,
+             float* __restrict__ out_x) {
+  attn::gemm_tile(a, a_sm, a_sk, b, ldb, M, K, ncols, u, v, out, bx, out_x);
 }
 
-// out[e] = sum_k part[k * e_count + e], k in order.
 __global__ void __launch_bounds__(THREADS)
 b2_sum_parts(const float* __restrict__ part, int k_count, int e_count,
              float* __restrict__ out) {
-  const int e = blockIdx.x * THREADS + threadIdx.x;
-  if (e >= e_count) return;
-  float s = 0.f;
-  for (int k = 0; k < k_count; ++k) s += part[(size_t)k * e_count + e];
-  out[e] = s;
+  attn::sum_parts(part, k_count, e_count, out);
 }
 
 struct Args {
@@ -572,9 +363,10 @@ struct Args {
 };
 
 cudaError_t gemm(const Args& x, const float* a, int a_sm, int a_sk, const float* b, int ldb,
-                 int M, int K, int ncols, const float* u, const float* v, float* out) {
-  const dim3 grid((ncols + GTILE - 1) / GTILE, (M + GTILE - 1) / GTILE);
-  b2_gemm_tile<<<grid, GT, 0, x.stream>>>(a, a_sm, a_sk, b, ldb, M, K, ncols, u, v, out);
+                 int M, int K, int ncols, const float* u, const float* v, float* out,
+                 const float* bx = nullptr, float* out_x = nullptr) {
+  b2_gemm_tile<<<gemm_grid(M, ncols, bx != nullptr), GT, 0, x.stream>>>(
+      a, a_sm, a_sk, b, ldb, M, K, ncols, u, v, out, bx, out_x);
   return cudaGetLastError();
 }
 
@@ -597,11 +389,12 @@ cudaError_t launch(const Args& x) {
                              (int)smem);
   if (err != cudaSuccess) return err;
   uint4* qa = reinterpret_cast<uint4*>(x.frags);
-  uint2* qbf = reinterpret_cast<uint2*>(qa + (size_t)NP * PT * KT * 32);
+  uint2* qbf = reinterpret_cast<uint2*>(qa + qa_uint4s<NP>());
 
   // prologue: q'' = q Wk^T (b = Wk^T row-major), qb = q bk, the pieces
-  if ((err = gemm(x, x.q, D, 1, x.wk_t, D, P, D, D, nullptr, nullptr, x.qpp))) return err;
-  if ((err = gemm(x, x.q, D, 1, x.bk, 1, P, D, 1, nullptr, nullptr, x.qb))) return err;
+  if ((err = gemm(x, x.q, D, 1, x.wk_t, D, P, D, D, nullptr, nullptr, x.qpp, x.bk, x.qb))) {
+    return err;
+  }
   b2_pack_q<NP><<<(PT * KT + PT * NT) * 32 / THREADS, THREADS, 0, x.stream>>>(x.qpp, qa, qbf);
   if ((err = cudaGetLastError())) return err;
 

@@ -11,46 +11,54 @@ Port of sixdgs_tpu/ops/attention_kernel.py. For q [P, d], ray features
 ``torch.autograd.Function`` whose forward is B1 and whose backward is B2,
 so neither direction writes the [P, N] logits to device memory.
 
+Both kernels form the logits reassociated, so that K is never formed:
+q'' = q Wk^T and qb = q bk give logits = (q'' feats^T + qb) / sqrt(d). They
+share one logits tile (``csrc/attention_tiles.cuh``: q'' and qb by the same
+f32 FMA order, the same bf16 pieces, the same mma.sync products), so their
+logits are bitwise equal in every mode and B2's probabilities sum to 1
+against B1's m and s up to the rounding of the exponentials and sums.
+
 On a CUDA tensor the forward launches the hand-written kernel in
 ``csrc/attention_scores.cu``, which replaces the TPU kernel
 ``_fwd_kernel_train`` (launched by ``_fused_fwd_call_train``). The TPU
-kernel's sequential two-pass grid becomes split-N on the card: per-CTA
-partial (max, sum-exp), a combine, and an emit pass that recomputes K and
-the logits. One counted launch is three CUDA kernels (b1_stats, b1_combine,
-b1_emit). It forms K: 2 (N d^2 + P N d) flops (16.1 GFLOP at N=32768,
-d=384), executed twice, because its second pass recomputes K and the
-logits, as the TPU kernel's does. Its bound is reckoned on B2's terms: the
-same function without K, 2 (P N d + P d^2) flops (6.52 GFLOP), at the bf16
-tensor-core rate divided by the mode's products, 0.020 ms in split3, bound
-by operations.
+kernel's sequential two-pass grid becomes at most 132 CTAs, each a
+contiguous run of 64-ray blocks: the prologue (q'' with qb, then q''
+packed into bf16 pieces), a stats pass (online per-patch max and sum-exp
+over the run), and an emit pass that combines the CTAs' partials in order,
+recomputes the logits and writes the masked column sums. One counted
+launch is four CUDA kernels (b1_gemm_tile, b1_pack_q, b1_stats, b1_emit).
+The function needs 2 (P N d + P d^2) flops (6.52 GFLOP at N=32768,
+d=384); the kernel executes the logits twice on the tensor cores (times
+the mode's products), as the TPU kernel's second pass recomputes them.
+Bound: those flops at the bf16 tensor-core rate divided by the mode's
+products, 0.020 ms in split3, bound by operations.
 
 The backward launches ``csrc/attention_scores_bwd.cu``, which replaces the
-TPU kernel ``_bwd_kernel`` (launched by ``_fused_scores_bwd``), reassociated
-so that K is never formed: q'' = q Wk^T and qb = q bk give the logits
-(q'' feats^T + qb) / sqrt(d), c_p = sum_j P_pj g_j, dlog = pmask P (g - c) /
-sqrt(d), dfeats = dlog^T q'', A = dlog feats and r = rowsum(dlog), then
-dq = A Wk + r bk^T, dWk = A^T q and dbk = q^T r. The three P N d products
-run on the tensor cores (mma.sync over bf16 pieces, ``csrc/mma_pieces.cuh``),
-every cross-CTA sum in a fixed order, so two launches agree bitwise. One
-counted launch is eleven CUDA kernels. Bound: 2 (3 P N d + 3 P d^2) flops,
-19.56 GFLOP at N=32768, at the bf16 tensor-core rate divided by the
-products the mode needs (1, 3 or 6): 0.059 ms in split3. As in the TPU
-kernel, dlog is not masked by ray validity: with every ray invalid,
-invalid rays get a nonzero dfeats where autodiff of the masked formula
-gives zero.
+TPU kernel ``_bwd_kernel`` (launched by ``_fused_scores_bwd``): on the same
+logits, c_p = sum_j P_pj g_j, dlog = pmask P (g - c) / sqrt(d), dfeats =
+dlog^T q'', A = dlog feats and r = rowsum(dlog), then dq = A Wk + r bk^T,
+dWk = A^T q and dbk = q^T r. One counted launch is ten CUDA kernels.
+Bound: 2 (3 P N d + 3 P d^2) flops, 19.56 GFLOP at N=32768, at the bf16
+tensor-core rate divided by the products the mode needs (1, 3 or 6): 0.059
+ms in split3. As in the TPU kernel, dlog is not masked by ray validity:
+with every ray invalid, invalid rays get a nonzero dfeats where autodiff of
+the masked formula gives zero.
 
-On a CPU tensor each direction runs its plain PyTorch version
-(``attention_scores_plain``, ``attention_scores_bwd_plain``), the same
-arithmetic in the same order. A CUDA tensor never falls back to the plain
-version.
+Every cross-CTA sum of both kernels is taken in a fixed order, so two
+launches agree bitwise. On a CPU tensor each direction runs its plain
+PyTorch version (``attention_scores_plain``, ``attention_scores_bwd_plain``,
+both on the logits of ``_plain_logits``). A CUDA tensor never falls back to
+the plain version.
 
-Precision ``mode``: in the forward, "f32" and "bf16_split3" both compute in
-plain f32 and "bf16" rounds every matmul operand to bf16 at the TPU
-kernel's _dot points. In the backward every mode runs on the tensor cores
-with f32 accumulation: "bf16" one bf16 piece per operand (q'', feats and
-dlog rounded once, as the plain version rounds them), "bf16_split3" the TPU
-kernel's hi/lo split (3 products, ~2^-18 relative), "f32" three pieces (6
-products); the plain version computes both f32-class modes in plain f32.
+Precision ``mode``: both kernels run their P N d products on the tensor
+cores (mma.sync over bf16 pieces, ``csrc/mma_pieces.cuh``) with f32
+accumulation: "bf16" one bf16 piece per operand (q'', feats and, in the
+backward, dlog rounded once, as the plain versions round them; the TPU
+kernel rounds feats, Wk, q and K instead), "bf16_split3" the TPU kernel's
+hi/lo split (3 products, ~2^-18 relative), "f32" three pieces (6
+products). The plain versions round or split the same operands through
+``_dot`` (in "f32", plain f32), so a kernel and its plain version differ
+in the order of their sums.
 """
 
 from __future__ import annotations
@@ -70,24 +78,47 @@ N_PATCHES = 256  # the kernel's patch count (16 x 16 DINOv2 grid)
 KERNEL_WIDTH = 384  # DINOv2-S
 
 
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
 def _dot(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
+    """a @ b with the operand rounding of the mode, as the TPU kernel's
+    _dot takes it and the CUDA kernels' bf16 pieces give it: "bf16" rounds
+    both operands to bf16; "bf16_split3" splits each into bf16 hi + lo (the
+    TPU kernel's _split_bf16) and sums hi hi + hi lo + lo hi; "f32" is
+    plain. Products of bf16 values are exact in f32, so what is left
+    between this and a kernel is the order of the sums."""
     if mode == "bf16":
-        a = a.to(torch.bfloat16).to(torch.float32)
-        b = b.to(torch.bfloat16).to(torch.float32)
+        return _bf16(a) @ _bf16(b)
+    if mode == "bf16_split3":
+        a_hi, b_hi = _bf16(a), _bf16(b)
+        a_lo, b_lo = _bf16(a - a_hi), _bf16(b - b_hi)
+        return a_hi @ b_hi + a_hi @ b_lo + a_lo @ b_hi
     return a @ b
+
+
+def _plain_logits(q, ray_feats, wk, bk, valid, mode):
+    """(q'', logits) of both plain versions, in the kernels' reassociated
+    order: q'' = q Wk^T [P, d] and the masked logits (q'' feats^T + q bk) /
+    sqrt(d), invalid rays NEG. K is never formed. The product on the ray
+    stream goes through ``_dot`` (q'' and feats rounded or split as the
+    kernels take them); q'' and q bk are plain f32."""
+    qpp = q @ wk.T
+    logits = (_dot(qpp, ray_feats.T, mode) + (q @ bk)[:, None]) / math.sqrt(q.shape[-1])
+    logits = torch.where(valid[None, :] > 0.0, logits,
+                         torch.full_like(logits, NEG))
+    return qpp, logits
 
 
 def attention_scores_plain(q, ray_feats, wk, bk, pmask, valid,
                            mode: str = "bf16_split3"
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch: (scores [N], m [P, 1],
-    s [P, 1]) with m, s the per-patch max and sum-exp residuals.
-    ``pmask`` [P] and ``valid`` [N] are float32."""
-    d = q.shape[-1]
-    k = _dot(ray_feats, wk, mode) + bk
-    logits = _dot(q, k.T, mode) / math.sqrt(d)
-    logits = torch.where(valid[None, :] > 0.0, logits,
-                         torch.full_like(logits, NEG))
+    """The forward kernel's function in plain PyTorch: (scores [N], m [P, 1],
+    s [P, 1]) with m, s the per-patch max and sum-exp residuals, from the
+    logits of ``_plain_logits``. ``pmask`` [P] and ``valid`` [N] are
+    float32."""
+    _, logits = _plain_logits(q, ray_feats, wk, bk, valid, mode)
     m = logits.amax(dim=1, keepdim=True)
     e = torch.exp(logits - m)
     s = e.sum(dim=1, keepdim=True)
@@ -100,20 +131,16 @@ def attention_scores_bwd_plain(q, ray_feats, wk, bk, pmask, valid, m, s, g,
     """The backward kernel's function in plain PyTorch, in the kernel's
     reassociated order: (dq [P, d], dfeats [N, d], dwk [d, d], dbk [d]) for
     the score cotangent ``g`` [N], with m, s the forward's [P, 1] (or [P])
-    residuals. K is never formed: q'' = q Wk^T and qb = q bk give the
-    logits, dfeats = dlog^T q'', A = dlog feats and r = rowsum(dlog) give
+    residuals. q'' and the logits come from ``_plain_logits``, as in the
+    forward; dfeats = dlog^T q'', A = dlog feats and r = rowsum(dlog) give
     dq = A Wk + r bk^T, dWk = A^T q and dbk = q^T r. The products on the ray
-    stream go through ``_dot`` (in "bf16" q'', feats and dlog are rounded,
-    as in the kernel); the small ones are plain f32. Like the TPU kernel
+    stream go through ``_dot`` (q'', feats and dlog rounded or split as
+    the kernel takes them); the small ones are plain f32. Like the TPU kernel
     (and unlike autodiff of the masked formula), dlog is not masked by
     ``valid``."""
     P, d = q.shape
     inv_sqrt_d = 1.0 / math.sqrt(d)
-    qpp = q @ wk.T
-    qb = q @ bk
-    logits = (_dot(qpp, ray_feats.T, mode) + qb[:, None]) / math.sqrt(d)
-    logits = torch.where(valid[None, :] > 0.0, logits,
-                         torch.full_like(logits, NEG))
+    qpp, logits = _plain_logits(q, ray_feats, wk, bk, valid, mode)
     probs = torch.exp(logits - m.reshape(P, 1)) / s.reshape(P, 1)
     c = torch.sum(probs * g[None, :], dim=1, keepdim=True)
     dlog = pmask[:, None] * probs * (g[None, :] - c) * inv_sqrt_d
@@ -151,9 +178,9 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 _SIGNATURES = {
     # name -> {C function: (restype, argtypes)}
     "attention_scores": {
-        "b1_attention_scores_fwd": (ctypes.c_int, [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+        "b1_attention_scores_fwd": (ctypes.c_int, [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
                                     + [ctypes.c_float, ctypes.c_void_p]),
-        "b1_rays_per_block": (ctypes.c_int, []),
+        "b1_scratch_floats": (ctypes.c_longlong, [ctypes.c_int]),
     },
     "attention_scores_bwd": {
         "b2_attention_scores_bwd": (ctypes.c_int, [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
@@ -161,6 +188,9 @@ _SIGNATURES = {
         "b2_scratch_floats": (ctypes.c_longlong, [ctypes.c_int]),
     },
 }
+
+# both kernels' mode argument: bf16 pieces per operand less one
+_MODE_ARG = {"bf16": 0, "bf16_split3": 1, "f32": 2}
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -173,18 +203,14 @@ def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
     lib = _library("attention_scores")
     P, d = q.shape
     N = ray_feats.shape[0]
-    nb = -(-N // lib.b1_rays_per_block())
     new = functools.partial(torch.empty, dtype=torch.float32, device=q.device)
-    ins = [_aligned(t) for t in (q.T, ray_feats, wk, bk, pmask, valid)]
+    # Wk^T is the k-projection's own (out, in) weight: no copy on the main path
+    ins = [_aligned(t) for t in (q, ray_feats, wk.T, bk, pmask, valid)]
     scores, m, s = new(N), new(P, 1), new(P, 1)
-    _build.launch(lib.b1_attention_scores_fwd, *ins, scores, m, s, new(P, nb), new(P, nb),
-            N, d, P, int(mode == "bf16"), math.sqrt(d))
+    _build.launch(lib.b1_attention_scores_fwd, *ins, scores, m, s,
+                  new(lib.b1_scratch_floats(N)), N, d, P, _MODE_ARG[mode], math.sqrt(d))
     attention_scores_fused.launches += 1
     return scores, m, s
-
-
-# the backward kernel's mode argument: bf16 pieces per operand less one
-_B2_MODE = {"bf16": 0, "bf16_split3": 1, "f32": 2}
 
 
 def _kernel_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode):
@@ -197,7 +223,7 @@ def _kernel_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode):
                                  m.reshape(P), s.reshape(P), g.reshape(N))]
     dfeats, dq, dwk, dbk = new(N, d), new(P, d), new(d, d), new(d)
     _build.launch(lib.b2_attention_scores_bwd, *ins, dfeats, dq, dwk, dbk,
-                  new(lib.b2_scratch_floats(N)), N, d, P, _B2_MODE[mode], math.sqrt(d))
+                  new(lib.b2_scratch_floats(N)), N, d, P, _MODE_ARG[mode], math.sqrt(d))
     attention_scores_bwd.launches += 1
     return dq, dfeats, dwk, dbk
 
@@ -243,7 +269,7 @@ def attention_scores_bwd(q, ray_feats, wk, bk, patch_mask, ray_valid, m, s, g,
                                       g.to(torch.float32), mode)
 
 
-# launches on CUDA tensors; each is eleven CUDA kernels (five b2_gemm_tile,
+# launches on CUDA tensors; each is ten CUDA kernels (four b2_gemm_tile,
 # b2_pack_q, b2_c, b2_grad, three b2_sum_parts)
 attention_scores_bwd.launches = 0
 
@@ -286,7 +312,8 @@ def attention_scores_fused(q, ray_feats, wk, bk, patch_mask, ray_valid,
     return _FusedScores.apply(q, ray_feats, wk, bk, pmask, valid, mode)
 
 
-# launches on CUDA tensors; each is three CUDA kernels (stats, combine, emit)
+# launches on CUDA tensors; each is four CUDA kernels (b1_gemm_tile,
+# b1_pack_q, b1_stats, b1_emit)
 attention_scores_fused.launches = 0
 
 

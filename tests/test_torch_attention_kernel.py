@@ -51,9 +51,26 @@ class TestPlainVersusPallas:
 
         scores, tm, ts = tak.attention_scores_fwd(*map(_t, (q, feats, wk, bk, pmask, valid)),
                                                   mode=mode)
-        np.testing.assert_allclose(scores.numpy(), ref, atol=1e-5, rtol=1e-4)
-        np.testing.assert_allclose(tm.numpy(), np.asarray(m), atol=1e-5, rtol=1e-4)
-        np.testing.assert_allclose(ts.numpy(), np.asarray(s), atol=1e-5, rtol=1e-4)
+        if mode == "bf16":
+            # the port rounds q'' = q Wk^T and feats (its reassociated
+            # order, the one B2 takes), the Pallas kernel feats, Wk, q and
+            # K. Each rounding is off by up to 2^-9 relative, so a logit
+            # l_pj = sum_k t_k, t_k = q''_pk f_jk / sqrt(d), differs by
+            # a few 2^-9 of its terms' root-sum-square size R (read: up
+            # to 3.5 x 2^-9 R over the 262,144 logits): delta = 8 x 2^-9 R.
+            # Carried into the softmax: |dm_p| <= delta, |ds_p| / s_p <=
+            # 2 delta and |dscore_j| <= 2 delta score_j (read: 6.9e-3,
+            # 6.5e-3 and 7.5e-4 against 1.6e-2, 3.1e-2 and 3.1e-2)
+            qpp = q.astype(np.float64) @ wk.T.astype(np.float64)
+            R = np.sqrt((qpp ** 2 @ feats.T.astype(np.float64) ** 2).max() / q.shape[1])
+            delta = 8 * 2.0 ** -9 * R
+            tols = {"scores": (1e-5, 2 * delta), "m": (delta, 0.0), "s": (0.0, 2 * delta)}
+        else:
+            tols = dict.fromkeys(("scores", "m", "s"), (1e-5, 1e-4))
+        for name, a, b in (("scores", scores, ref), ("m", tm, m), ("s", ts, s)):
+            atol, rtol = tols[name]
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=atol, rtol=rtol,
+                                       err_msg=name)
         out_only = tak.attention_scores_fused(*map(_t, (q, feats, wk, bk, pmask, valid)),
                                               mode=mode)
         np.testing.assert_array_equal(out_only.numpy(), scores.numpy())
@@ -87,6 +104,66 @@ class TestPlainVersusPallas:
         with torch.no_grad():
             out = tak.fused_ray_scores(tm, *map(_t, (img, rays, pmask, valid))).numpy()
         np.testing.assert_allclose(out, ref, atol=1e-5, rtol=1e-4)
+
+
+class TestForwardReassociationIdentity:
+    """The plain forward in its reassociated order (logits = (q'' feats^T +
+    q bk) / sqrt(d), q'' = q Wk^T) against the K-path formula of the TPU
+    kernel's _fwd_kernel_train (K = feats Wk + bk, logits = q K^T /
+    sqrt(d)), both in float64: exact in real arithmetic, so they agree to
+    float64 rounding."""
+
+    @pytest.mark.parametrize("case", ["partial", "all_invalid"])
+    def test_reassociated_equals_k_path(self, case):
+        q, feats, wk, bk, pmask, valid = (torch.tensor(x, dtype=torch.float64) for x in
+                                          _problem(seed=13, d=64, N=300, n_invalid=40))
+        if case == "all_invalid":
+            valid = torch.zeros_like(valid)
+        got = tak.attention_scores_plain(q, feats, wk, bk, pmask, valid, mode="f32")
+        d = q.shape[1]
+        logits = torch.where(valid[None] > 0, q @ (feats @ wk + bk).T / d ** 0.5,
+                             torch.full((q.shape[0], 300), tak.NEG, dtype=torch.float64))
+        m = logits.amax(1, keepdim=True)
+        e = torch.exp(logits - m)
+        s = e.sum(1, keepdim=True)
+        want = ((e / s * pmask[:, None]).sum(0), m, s)
+        for name, a, b in zip(("scores", "m", "s"), got, want):
+            assert a.dtype == torch.float64, name
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0,
+                                       atol=1e-10 * max(b.abs().max().item(), 1e-3),
+                                       err_msg=name)
+        if case == "all_invalid":
+            # NEG, not -inf: each patch spreads 1/N over the rays
+            assert (got[1] == tak.NEG).all()
+            np.testing.assert_allclose(got[0].numpy(), pmask.sum().item() / 300, rtol=1e-12)
+        else:
+            assert (got[0][-40:] == 0).all()  # the invalid tail: exactly zero
+
+
+class TestSharedPlainLogits:
+    """Both plain versions take their logits from one helper, so the
+    forward's m and s normalise the backward's probabilities: sum_j P_pj =
+    1 per patch up to float32 rounding of the exponentials and sums."""
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "bf16_split3"])
+    def test_backward_probabilities_sum_to_one(self, mode, monkeypatch):
+        q, feats, wk, bk, pmask, valid, g = map(_t, (*_problem(seed=14), np.ones(1024, np.float32)))
+        seen = []
+        helper = tak._plain_logits
+
+        def spy(*args):
+            out = helper(*args)
+            seen.append(out[1])
+            return out
+
+        monkeypatch.setattr(tak, "_plain_logits", spy)
+        _, m, s = tak.attention_scores_plain(q, feats, wk, bk, pmask, valid, mode=mode)
+        tak.attention_scores_bwd_plain(q, feats, wk, bk, pmask, valid, m, s, g, mode=mode)
+        assert len(seen) == 2 and torch.equal(seen[0], seen[1])
+        # the backward's probabilities, as it forms them
+        probs = torch.exp(seen[1] - m) / s
+        mass = probs.double().sum(1)
+        assert (mass - 1).abs().max().item() <= 1e-6
 
 
 class TestPlainBackwardVersusPallas:
