@@ -7,7 +7,9 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
 (``CUDA_HOME`` or /usr/local/cuda). Phases, each of which raises on failure:
 
   1. build every CUDA kernel of the ported paths from ``sixdgs_torch/csrc``
-     (one nvcc per source, all started together): B1, B2, B5, B3, B4;
+     (one nvcc per source, all started together): B1, B2, B5, B3, B4, and
+     beside them the builds of B3 and B4 with their other compile-time
+     choices (pixels per thread, B4's pairs per round) that phase 7 times;
   2. hold each kernel against its plain PyTorch version on the card: B1
      and B2 at the pose paths' shapes (P=256, d=384, N in {32768, 131072},
      all three precision modes, a partial patch mask and a padded tail of
@@ -21,7 +23,11 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      on the same tiles B3 with the transmittance store (``out`` bitwise as
      without it, the store against the plain version's) and B4 under a
      random cotangent (replay against its plain version, stored against
-     replay bitwise, a second launch bitwise);
+     replay bitwise, a second launch bitwise); B3 and B4, all four modes,
+     on the compositor's design cases: means far from the tile origin,
+     every pixel contributing to every pair, half the tile stopped early,
+     and (B3 without the store, B4 replaying) the packed layout, segments
+     starting anywhere in an odd nc;
   3. the pose serving path at full width: a random 262,144-Gaussian SH-3
      scene written with save_ply and read back with load_ply, rays from the
      default config (32,768-ray budget, 1,000 ellipsoids, 20-NN normals),
@@ -68,9 +74,11 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      profiles of one image, one id-module training step, one render and
      one 3DGS training step, with each CUDA kernel's share of one B2 call
      and B1's and B2's share of the id-module step's device time, and the
-     registers and shared memory of B1's and B2's kernels (ptxas), each
-     CUDA kernel's share of one B1 call and B1's share of a served
-     image's device time. B1's ``launches`` counts calls of its wrapper,
+     registers and shared memory of B1's, B2's, B3's and B4's kernels
+     (ptxas), each CUDA kernel's share of one B1 call, B1's share of a
+     served image's device time, B3's and B4's of a render's and a 3DGS
+     step's, and B3 and B4 at each of their compile-time choices on camera
+     0's layout, timed in turns. B1's ``launches`` counts calls of its wrapper,
      each four CUDA kernels; B2's, each ten; B5's, B3's and B4's, one each.
 
 The last three lines of standard output are the card's name and power limit
@@ -154,6 +162,12 @@ N_TRAIN_STEPS = 12
 N_PLAIN_STEPS = 4
 KERNEL_SOURCES = ("attention_scores", "attention_scores_bwd", "align_compact",
                   "composite_fwd", "composite_bwd")
+# the compile-time choices of B3 and B4 that phase 7 times (-D of a build
+# beside the default one): pixels per thread, and B4's pairs per round
+B3_VARIANTS = tuple((f"B3_PPT={p}", f"B3_STORE_PPT={p}") for p in (1, 2, 4))
+B4_VARIANTS = tuple((f"B4_PPT={p}", f"B4_SB={sb}") for sb in (16, 32) for p in (1, 2, 4))
+VARIANT_BUILDS = (tuple(("composite_fwd", d) for d in B3_VARIANTS)
+                  + tuple(("composite_bwd", d) for d in B4_VARIANTS))
 # render path: the JAX package's Mip-NeRF 360 render size (bench.py), 77 x 51
 # = 3,927 tiles of 16 x 16, 16 cameras on the ring at radius 3.1, FoVs that
 # follow the aspect ratio, a white background
@@ -245,6 +259,79 @@ def cuda_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def cuda_ms_back_to_back(fn, calls: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``calls`` calls issued back to back between
+    one pair of CUDA events: the host's work for a call overlaps the
+    device's for the one before, so a kernel longer than its wrapper's host
+    work reads its own time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def variant_times(pt, b3_args, out, dout, tex) -> dict:
+    """B3 and B4 built with each compile-time choice of VARIANT_BUILDS, on
+    camera 0's layout (``b3_args``; B4 on the default B3's ``out``, the
+    cotangent ``dout`` and its store ``tex``), launched as the wrappers
+    launch them and timed in turns (cuda_ms, 10 calls each, every variant
+    once in order and once in reverse). Each variant's B3 output must
+    equal the default build's bitwise with and without its store, and its
+    B4 gradients must be bitwise equal in both modes and within B4_MAX_ERR
+    of each row's largest magnitude of the default build's. Returns
+    {label: [ms, ms]}."""
+    from sixdgs_torch.ops import _build
+
+    rec, starts, counts, nx, ny, bg = b3_args
+    n_tiles, nc = nx * ny, rec.shape[1]
+    ref_out = pt.pallas_composite_fwd(*b3_args)
+    ref_g = pt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout, aligned=True,
+                                    texcl=tex)
+    scale = ref_g.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+    calls = {}
+    for name, defs in VARIANT_BUILDS:
+        lib = _build.library(name, defs)
+        (fname, (restype, argtypes)), = pt._SIGNATURES[name].items()
+        fn = getattr(lib, fname)
+        fn.restype, fn.argtypes = restype, argtypes
+        label = " ".join(defs)
+        if name == "composite_fwd":
+            def b3(store, fn=fn):
+                o = torch.empty(n_tiles, 256, 3, device="cuda")
+                tx = torch.empty(nc // 128, 256, 128, device="cuda") if store else None
+                _build.launch(fn, rec, nc, starts, counts, n_tiles, nx, bg, o, tx)
+                return o
+            same = (torch.equal(b3(False), ref_out), torch.equal(b3(True), ref_out))
+            if not all(same):
+                raise AssertionError(f"B3 {label}: out differs from the default build {same}")
+            calls[f"B3 {label}"] = lambda b3=b3: b3(False)
+            calls[f"B3 store {label}"] = lambda b3=b3: b3(True)
+        else:
+            def b4(texcl, fn=fn):
+                g = torch.zeros(16, nc, device="cuda")
+                _build.launch(fn, rec, nc, starts, counts, n_tiles, nx, out, dout, texcl, g)
+                return g
+            stored, replay = b4(tex), b4(None)
+            rel = ((stored - ref_g).abs() / scale)[:9].max().item()
+            if not (torch.equal(stored, replay) and rel <= B4_MAX_ERR):
+                raise AssertionError(f"B4 {label}: modes equal {torch.equal(stored, replay)}, "
+                                     f"{rel} of the row max off the default build")
+            calls[f"B4 stored {label}"] = lambda b4=b4: b4(tex)
+            calls[f"B4 replay {label}"] = lambda b4=b4: b4(None)
+    times = {k: [] for k in calls}
+    for order in (list(calls), list(reversed(calls))):
+        for k in order:
+            times[k].append(cuda_ms(calls[k], reps=10))
+    return times
 
 
 def b1_inputs(n: int, gen):
@@ -685,21 +772,132 @@ def backward_checks(pt, label: str, args, out_nostore) -> float:
     again = pt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
     want = pt.composite_bwd_plain(rec, starts, counts, nx, ny, out, dout)
     torch.cuda.synchronize()
-    bitwise = (torch.equal(replay, stored), torch.equal(replay, again))
+    return b4_check(label, replay, want, int(counts.sum()),
+                    {"stored == replay": torch.equal(replay, stored),
+                     "second launch": torch.equal(replay, again)})
+
+
+def b4_check(label: str, got, want, real: int, bitwise: dict) -> float:
+    """B4 against its plain version (per row: B4_MAX_ERR of the row's
+    largest magnitude, at most a B4_FLIP_SHARE of the ``real`` lanes off by
+    more than 1e-5 of it), rows 9-15 zero, and the ``bitwise`` readings all
+    true; returns the max abs error."""
     scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
-    err = (replay - want).abs()
+    err = (got - want).abs()
     rel = (err / scale)[:9]
-    real = int(counts.sum())
     share = (rel > 1e-5).sum().item() / max(9 * real, 1)
-    log(f"B4 {label}: stored == replay bitwise: {bitwise[0]}; second launch bitwise: "
-        f"{bitwise[1]}; vs plain max_abs_err={err.max().item():.3e}, max err / row max "
-        f"{rel.max().item():.2e} (limit {B4_MAX_ERR}), share of real lanes off by > 1e-5 "
-        f"of the row max: {share:.2e} (limit {B4_FLIP_SHARE}); rows 9-15 zero: "
-        f"{not replay[9:].any().item()}")
-    if not (all(bitwise) and torch.isfinite(replay).all() and not replay[9:].any()
+    log(f"B4 {label}: bitwise {json.dumps(bitwise)}; vs plain max_abs_err="
+        f"{err.max().item():.3e}, max err / row max {rel.max().item():.2e} (limit "
+        f"{B4_MAX_ERR}), share of real lanes off by > 1e-5 of the row max: {share:.2e} "
+        f"(limit {B4_FLIP_SHARE}); rows 9-15 zero: {not got[9:].any().item()}")
+    if not (all(bitwise.values()) and torch.isfinite(got).all() and not got[9:].any()
             and rel.max().item() <= B4_MAX_ERR and share <= B4_FLIP_SHARE):
         raise AssertionError(f"B4 {label} failed: bitwise {bitwise}, {rel.max().item()}, {share}")
     return err.max().item()
+
+
+def design_case(case: str, seed: int = 6):
+    """The compositor's design cases on the card: (records [16, NC], starts,
+    counts, nx, ny). far_means: means up to 40 px from the tile origin, wide
+    footprints; all_contribute: translucent splats over the whole tile,
+    every pixel contributing to every pair (B4's reduce at full load);
+    half_stopped: two passes of opaque one-row splats over the tile's top
+    half first, so that its pixels stop early and the bottom half walks on;
+    packed: segments starting anywhere (not at multiples of 4) in an odd
+    NC. The same cases as tests/test_torch_cuda_kernels.py's."""
+    rng = np.random.default_rng(seed)
+    nx = ny = 3 if case == "packed" else 4
+    n_tiles = nx * ny
+    counts = rng.integers(150, 400, n_tiles)
+    if case == "packed":
+        counts[[1, 4]] = [0, 3]
+        gaps = rng.integers(1, 6, n_tiles)
+        starts = 3 + np.concatenate([[0], np.cumsum(counts + gaps)])
+        nc = int(starts[-1]) | 1
+    else:
+        starts = np.concatenate([[0], np.cumsum(-(-counts // 128) * 128)])
+        nc = int(starts[-1]) + 128
+    rec = np.zeros((16, nc), np.float32)
+    t = np.repeat(np.arange(n_tiles), counts)
+    idx = np.concatenate([np.arange(s, s + c) for s, c in zip(starts[:-1], counts)])
+    n = idx.size
+    ox, oy = (t % nx) * 16.0, (t // nx) * 16.0
+    A, C = rng.uniform(0.05, 0.3, n), rng.uniform(0.05, 0.3, n)
+    x, y = ox + rng.uniform(-4, 20, n), oy + rng.uniform(-4, 20, n)
+    opac = rng.uniform(0.1, 0.99, n)
+    if case == "far_means":
+        x, y = ox + rng.uniform(-40, 40, n), oy + rng.uniform(-40, 40, n)
+        A, C = rng.uniform(0.002, 0.02, n), rng.uniform(0.002, 0.02, n)
+        opac = rng.uniform(0.05, 0.6, n)
+    elif case == "all_contribute":
+        x, y = ox + 8 + rng.uniform(-2, 2, n), oy + 8 + rng.uniform(-2, 2, n)
+        A, C = rng.uniform(0.001, 0.003, n), rng.uniform(0.001, 0.003, n)
+        opac = rng.uniform(0.008, 0.02, n)
+    B = rng.uniform(-0.5, 0.5, n) * np.sqrt(A * C)
+    if case == "half_stopped":
+        # the first 16 pairs of each segment: rows 0-7, twice, opaque; the
+        # rest translucent
+        opac = rng.uniform(0.02, 0.1, n)
+        k = np.concatenate([np.arange(c) for c in counts])
+        row = k < 16
+        x[row], y[row] = ox[row] + 8, oy[row] + k[row] % 8
+        A[row], B[row], C[row], opac[row] = 1e-4, 0.0, 2.0, 1.0
+    rec[0, idx], rec[1, idx] = x, y
+    rec[2, idx], rec[3, idx], rec[4, idx] = A, B, C
+    rec[5:8, idx] = rng.uniform(0, 1, (3, n))
+    rec[8, idx] = opac
+    return (torch.tensor(rec, device="cuda"),
+            torch.tensor(starts, dtype=torch.int32, device="cuda"),
+            torch.tensor(counts, dtype=torch.int32, device="cuda"), nx, ny)
+
+
+def phase_design_cases(pt):
+    """B3 (with and without the store) and B4 (both modes) on the aligned
+    design cases; B3 without the store and B4 replaying on the packed one,
+    where the stored modes must refuse the layout."""
+    bg = torch.tensor([0.1, 0.5, 0.9], device="cuda")
+    for case in ("far_means", "all_contribute", "half_stopped"):
+        rec, starts, counts, nx, ny = design_case(case)
+        got = pt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg)
+        want, (evals, contribs) = pt.composite_fwd_plain(rec, starts, counts, nx, ny, bg,
+                                                         return_work=True)
+        torch.cuda.synchronize()
+        log(f"B3 {case}: {nx * ny} tiles of {int(counts.min())}-{int(counts.max())} pairs, "
+            f"{evals} evaluations, {contribs} contributions of {256 * int(counts.sum())} "
+            f"(pixel, pair)")
+        b3_check(case, got, want)
+        backward_checks(pt, case, (rec, starts, counts, nx, ny, bg), got)
+    rec, starts, counts, nx, ny = design_case("packed")
+    got = pt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg)
+    want = pt.composite_fwd_plain(rec, starts, counts, nx, ny, bg)
+    torch.cuda.synchronize()
+    log(f"packed layout: nc {rec.shape[1]}, segment starts {starts[:-1].tolist()}")
+    b3_check("packed", got, want)
+    dout = torch.randn(got.shape, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(SEED))
+    replay = pt.pallas_composite_bwd(rec, starts, counts, nx, ny, got, dout)
+    again = pt.pallas_composite_bwd(rec, starts, counts, nx, ny, got, dout)
+    want = pt.composite_bwd_plain(rec, starts, counts, nx, ny, got, dout)
+    torch.cuda.synchronize()
+    lane = torch.arange(rec.shape[1], device="cuda")
+    walked = ((lane[None] >= starts[:-1, None].long())
+              & (lane[None] < (starts[:-1] + counts).long()[:, None])).any(0)
+    b4_check("packed", replay, want, int(counts.sum()),
+             {"second launch": torch.equal(replay, again),
+              "lanes between segments zero": not replay[:, ~walked].any().item()})
+    refused = []
+    for call in (lambda: pt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg, store_t=True),
+                 lambda: pt.pallas_composite_bwd(
+                     rec, starts, counts, nx, ny, got, dout,
+                     texcl=torch.zeros(rec.shape[1] // 128, 256, 128, device="cuda"))):
+        try:
+            call()
+            refused.append(False)
+        except ValueError:
+            refused.append(True)
+    log(f"packed layout: the stored modes refuse it: {refused}")
+    if not all(refused):
+        raise AssertionError(f"a stored mode took the packed layout: {refused}")
 
 
 def phase_raster_kernels(pt, rng):
@@ -734,6 +932,7 @@ def phase_raster_kernels(pt, rng):
             f"{evals / (64 * 256):.0f} evaluations per pixel")
         b3_check(label, got, want)
         backward_checks(pt, label, (rec, starts, counts, 8, 8, bg), got)
+    phase_design_cases(pt)
 
 
 def render_cameras():
@@ -1092,18 +1291,23 @@ def phase_gs_training(ak, pt, arrays, render, rng):
             "n_steps": n_steps}
 
 
-def ptxas_report(build, name: str) -> list:
+def ptxas_report(build, name: str, defines: tuple = ()) -> list:
     """Registers, spills and static shared memory of each kernel of
-    csrc/<name>.cu, from the ptxas report that the build keeps."""
+    csrc/<name>.cu (built with ``defines``), from the ptxas report that the
+    build keeps; a template instance is labelled by its int and bool
+    arguments (<true, 1, 256>)."""
     import re
 
-    lines = build._lib_path(name).with_suffix(".log").read_text().splitlines()
+    lines = build._lib_path(name, defines).with_suffix(".log").read_text().splitlines()
     out, fn, spill = [], None, ""
     for line in lines:
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            m = re.search(r"\d(b\d_[a-z_]+)(?:ILi(\d)EE|E)", entry.group(1))
-            fn = (m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")) if m else entry.group(1)
+            m = re.search(r"\d(b\d_[a-z_]+)(I.*?E)?E", entry.group(1))
+            args = re.findall(r"L([ib])(\d+)E", (m.group(2) or "") if m else "")
+            label = ", ".join(v if t == "i" else "true" if v == "1" else "false"
+                              for t, v in args)
+            fn = (m.group(1) + (f"<{label}>" if args else "")) if m else entry.group(1)
         elif "spill" in line and fn:
             spill = line.strip()
         elif "Used" in line and fn:
@@ -1137,8 +1341,8 @@ def profile_run(label: str, run, unprofiled_ms: float, shares: bool = False) -> 
         share = f" {100 * r.self_device_time_total / 1e3 / busy_ms:5.1f}%" if shares else ""
         log(f"  {r.self_device_time_total / 1e3:8.3f} ms{share} x{r.count:<4d} {r.key[:100]}")
     by = {k: sum(r.self_device_time_total for r in rows if k in r.key) / 1e3
-          for k in ("b1_", "b2_")}
-    return {"busy_ms": busy_ms, "b1_ms": by["b1_"], "b2_ms": by["b2_"]}
+          for k in ("b1_", "b2_", "b3_", "b4_", "b5_")}
+    return {"busy_ms": busy_ms, **{f"{k}ms": v for k, v in by.items()}}
 
 
 def main() -> int:
@@ -1163,12 +1367,15 @@ def main() -> int:
     if torch.get_float32_matmul_precision() != "highest":
         raise AssertionError("float32 matmuls must not use TF32")
 
-    # 1. build: one nvcc per source, all started together
+    # 1. build: one nvcc per source and per variant, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
-        secs = dict(zip(KERNEL_SOURCES, pool.map(_build.build, KERNEL_SOURCES)))
-    log(f"phase 1 build: {json.dumps(secs)} s "
-        f"({time.perf_counter() - t0:.2f} s wall)")
+    jobs = [(name, ()) for name in KERNEL_SOURCES] + list(VARIANT_BUILDS)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        secs = list(pool.map(lambda job: _build.build(*job), jobs))
+    variants = {f"{n} {' '.join(d)}": x for (n, d), x in zip(VARIANT_BUILDS,
+                                                             secs[len(KERNEL_SOURCES):])}
+    log(f"phase 1 build: {json.dumps(dict(zip(KERNEL_SOURCES, secs)))} s; variants "
+        f"{json.dumps(variants)} s ({time.perf_counter() - t0:.2f} s wall)")
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1369,8 +1576,12 @@ def main() -> int:
     render_ms = statistics.median(walls)
     log(f"render_eval ms per {RENDER_W}x{RENDER_H} image (median of {len(walls)}): "
         f"{render_ms:.3f} (min {min(walls):.3f}, max {max(walls):.3f})")
-    profile_run("render_eval", lambda: render_eval(scene, cams[0], bg, scene.max_sh_degree),
-                render_ms)
+    prof = profile_run("render_eval", lambda: render_eval(scene, cams[0], bg,
+                                                          scene.max_sh_degree), render_ms)
+    render_device = {"device_ms": prof["busy_ms"], "b3_ms": prof["b3_ms"],
+                     "b5_ms": prof["b5_ms"]}
+    log(f"render_eval: device {prof['busy_ms']:.3f} ms; B3 {prof['b3_ms']:.3f} ms "
+        f"({100 * prof['b3_ms'] / prof['busy_ms']:.1f}%), B5 {prof['b5_ms']:.3f} ms of it")
     b5_args = (lay.gidx_c, lay.starts, lay.starts_al, lay.n_tiles, lay.P)
     b3_args = (render["records_t"], lay.starts_al, lay.counts_k, lay.nx, lay.ny, bg)
     b5_ms = cuda_ms(lambda: pt._align_compact(*b5_args))
@@ -1404,6 +1615,21 @@ def main() -> int:
     log(f"B4 stored: {b4_ms:.4f} ms, plain {b4_plain_ms:.3f} ms, bound {b4_bound_ms:.4f} ms "
         f"({b4_bound_by}); replay: {b4_replay_ms:.4f} ms, plain {b4_plain_replay_ms:.3f} "
         f"ms, bound {b4_replay_bound_ms:.4f} ms")
+    back = {
+        "B3": cuda_ms_back_to_back(lambda: pt.pallas_composite_fwd(*b3_args)),
+        "B3 store": cuda_ms_back_to_back(lambda: pt.pallas_composite_fwd(*b3_args,
+                                                                          store_t=True)),
+        "B4 stored": cuda_ms_back_to_back(lambda: pt.pallas_composite_bwd(
+            *b4_args, aligned=True, texcl=tex)),
+        "B4 replay": cuda_ms_back_to_back(lambda: pt.pallas_composite_bwd(*b4_args)),
+    }
+    log("compositor ms per call, 20 calls back to back between two events: "
+        + json.dumps(back))
+    log("compositor builds, ms in turns (order, reverse) on camera 0's layout: "
+        + json.dumps(variant_times(pt, b3_args, out, dout, tex)))
+    for name, defines in (("composite_fwd", ()), ("composite_bwd", ())) + VARIANT_BUILDS:
+        log(f"{name} {' '.join(defines) or 'default'} (ptxas; B4's shared memory is "
+            f"dynamic): " + "; ".join(ptxas_report(_build, name, defines)))
     del out, tex, dout, b4_args
 
     # one more 3DGS step after the counted run, profiled
@@ -1418,7 +1644,12 @@ def main() -> int:
                       sh_degree=3, rasterizer="auto", with_telemetry=False)
 
     gs_step()
-    profile_run("3DGS training step", gs_step, gs_run["timing"]["gs_step_ms"])
+    prof = profile_run("3DGS training step", gs_step, gs_run["timing"]["gs_step_ms"])
+    gs_run["timing"].update({"device_ms": prof["busy_ms"], "b3_ms": prof["b3_ms"],
+                             "b4_ms": prof["b4_ms"], "b5_ms": prof["b5_ms"]})
+    log(f"3DGS step: device {prof['busy_ms']:.3f} ms; B4 {prof['b4_ms']:.3f} ms "
+        f"({100 * prof['b4_ms'] / prof['busy_ms']:.1f}%), B3 {prof['b3_ms']:.3f} ms "
+        f"({100 * prof['b3_ms'] / prof['busy_ms']:.1f}%), B5 {prof['b5_ms']:.3f} ms of it")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
@@ -1488,6 +1719,9 @@ def main() -> int:
         "store_t_plain_ms": b3s_plain_ms,
         "store_t_bound_ms": b3s_bound_ms,
         "store_t_bound_by": b3s_bound_by,
+        # device time per call with 20 calls issued back to back
+        "ms_back_to_back": back["B3"],
+        "store_t_ms_back_to_back": back["B3 store"],
         # no single PyTorch call composites depth-ordered splats per tile
         "library_ms": None,
     }, {
@@ -1505,6 +1739,8 @@ def main() -> int:
         "replay_ms": b4_replay_ms,
         "replay_plain_ms": b4_plain_replay_ms,
         "replay_bound_ms": b4_replay_bound_ms,
+        "ms_back_to_back": back["B4 stored"],
+        "replay_ms_back_to_back": back["B4 replay"],
         # no single PyTorch call differentiates a per-tile compositor
         "library_ms": None,
     }]
@@ -1513,8 +1749,8 @@ def main() -> int:
     log("training step: " + json.dumps(train_timing))
     log("3DGS training step: " + json.dumps(gs_run["timing"])
         + f"; first-step gradients vs plain twin, worst err / scale {gs_run['grad_err']:.2e}")
-    log(f"render_eval per image: {render_ms:.3f} ms; image vs golden model max abs "
-        f"{render['render_err']:.3e}")
+    log(f"render_eval per image: {render_ms:.3f} ms, {json.dumps(render_device)}; image vs "
+        f"golden model max abs {render['render_err']:.3e}")
     log(gpu_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

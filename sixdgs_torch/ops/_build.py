@@ -3,7 +3,9 @@
 ``csrc/<name>.cu`` becomes ``build/torch_kernels/<name>-<hash>.so`` at
 first use, keyed on a hash of the source, the shared headers
 (``csrc/*.cuh``) and the compiler flags, so an edited source or header is
-rebuilt and an unchanged one is loaded as it is. The
+rebuilt and an unchanged one is loaded as it is. ``defines`` (``NAME=value``
+strings, passed as ``-D``) build a variant of a source beside its default
+build, as chip_smoke.py does to time a kernel's compile-time choices. The
 sources include no PyTorch header and export a plain C interface, which
 keeps a build to seconds. Nothing here runs at import time: this module is
 imported on machines that have neither nvcc nor a GPU.
@@ -35,25 +37,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines: tuple = ()) -> tuple:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _lib_path(name: str, defines: tuple = ()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    key = hashlib.sha256(src + " ".join(_flags(defines)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 
 
-def build(name: str) -> float:
+def build(name: str, defines: tuple = ()) -> float:
     """Compile ``csrc/<name>.cu`` unless its library is current. Returns the
     wall seconds of the build (0.0 where the library was already current)
     and raises with nvcc's output when it fails. ptxas's register and
     shared-memory report goes to ``<lib>.log`` beside the library."""
-    out = _lib_path(name)
+    out = _lib_path(name, defines)
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+    proc = subprocess.run([_nvcc(), *_flags(defines), "-o", str(tmp),
+                           str(CSRC / f"{name}.cu")],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     out.with_suffix(".log").write_bytes(proc.stdout)
     if proc.returncode != 0:
@@ -63,10 +70,10 @@ def build(name: str) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
+def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
     """``csrc/<name>.cu`` loaded, built first if needed."""
-    build(name)
-    return ctypes.CDLL(str(_lib_path(name)))
+    build(name, defines)
+    return ctypes.CDLL(str(_lib_path(name, defines)))
 
 
 _bound = {}
@@ -90,8 +97,12 @@ def launch(fn, *args) -> None:
     Raises when it returns a CUDA error (a launch the card refused)."""
     import torch
 
-    with torch.cuda.device(args[0].device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args], stream)
+    dev = args[0].device
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    if dev.index == torch.cuda.current_device():  # no device switch: host work is the cost
+        err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*ptrs, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")

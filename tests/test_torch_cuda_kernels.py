@@ -474,3 +474,147 @@ class TestCompositeBackwardKernel:
             assert (gs_state.adam.m[k].cpu() - w).abs().max() <= 1e-3 * w.abs().max(), k
         assert torch.equal(gs_state.denom.cpu(), cs.denom)
         assert torch.equal(gs_state.max_radii2d.cpu(), cs.max_radii2d)
+
+
+def _design_case(case, seed=6, dev="cuda"):
+    """The compositor's design cases on the card: (records [16, NC], starts,
+    counts, nx, ny).
+
+    far_means: means up to 40 px from the tile origin, wide footprints;
+    all_contribute: translucent splats over the whole tile, every pixel
+    contributing to every pair (the backward's reduce at full load);
+    half_stopped: two passes of opaque one-row splats over the tile's top
+    half first, so its pixels stop early and the bottom half walks on;
+    packed: segments starting anywhere (not at multiples of 4) in an odd
+    NC, the unaligned layout."""
+    rng = np.random.default_rng(seed)
+    nx = ny = 3 if case == "packed" else 4
+    n_tiles = nx * ny
+    counts = rng.integers(150, 400, n_tiles)
+    if case == "packed":
+        counts[[1, 4]] = [0, 3]
+        gaps = rng.integers(1, 6, n_tiles)
+        starts = 3 + np.concatenate([[0], np.cumsum(counts + gaps)])
+        nc = int(starts[-1]) | 1
+    else:
+        starts = np.concatenate([[0], np.cumsum(-(-counts // 128) * 128)])
+        nc = int(starts[-1]) + 128
+    rec = np.zeros((16, nc), np.float32)
+    t = np.repeat(np.arange(n_tiles), counts)
+    idx = np.concatenate([np.arange(s, s + c) for s, c in zip(starts[:-1], counts)])
+    n = idx.size
+    ox, oy = (t % nx) * 16.0, (t // nx) * 16.0
+    A, C = rng.uniform(0.05, 0.3, n), rng.uniform(0.05, 0.3, n)
+    x, y = ox + rng.uniform(-4, 20, n), oy + rng.uniform(-4, 20, n)
+    opac = rng.uniform(0.1, 0.99, n)
+    if case == "far_means":
+        x, y = ox + rng.uniform(-40, 40, n), oy + rng.uniform(-40, 40, n)
+        A, C = rng.uniform(0.002, 0.02, n), rng.uniform(0.002, 0.02, n)
+        opac = rng.uniform(0.05, 0.6, n)
+    elif case == "all_contribute":
+        x, y = ox + 8 + rng.uniform(-2, 2, n), oy + 8 + rng.uniform(-2, 2, n)
+        A, C = rng.uniform(0.001, 0.003, n), rng.uniform(0.001, 0.003, n)
+        opac = rng.uniform(0.008, 0.02, n)
+    B = rng.uniform(-0.5, 0.5, n) * np.sqrt(A * C)
+    if case == "half_stopped":
+        # the first 16 pairs of each segment: rows 0-7, twice, opaque; the
+        # rest translucent
+        opac = rng.uniform(0.02, 0.1, n)
+        k = np.concatenate([np.arange(c) for c in counts])
+        row = k < 16
+        x[row], y[row] = ox[row] + 8, oy[row] + k[row] % 8
+        A[row], B[row], C[row], opac[row] = 1e-4, 0.0, 2.0, 1.0
+    rec[0, idx], rec[1, idx] = x, y
+    rec[2, idx], rec[3, idx], rec[4, idx] = A, B, C
+    rec[5:8, idx] = rng.uniform(0, 1, (3, n))
+    rec[8, idx] = opac
+    return (torch.tensor(rec, device=dev), torch.tensor(starts, dtype=torch.int32, device=dev),
+            torch.tensor(counts, dtype=torch.int32, device=dev), nx, ny)
+
+
+def _b4_close(got, want):
+    """B4 against its plain version, as in TestCompositeBackwardKernel: each
+    gradient row within 1e-4 of its largest magnitude, at most a 1e-5 share
+    of the lanes off by more than 1e-5 of it."""
+    assert torch.isfinite(got).all() and not got[9:].any()
+    scale = want.abs().amax(dim=1, keepdim=True).clamp_min(1e-12)
+    err = (got - want).abs() / scale
+    assert err[:9].max().item() <= 1e-4
+    assert (err[:9] > 1e-5).float().mean().item() <= 1e-5
+
+
+@pytest.mark.cuda
+class TestCompositeDesignCases:
+    """B3 (both store modes) and B4 (both modes) on the cases that the
+    staged, several-pixels-per-thread walk and B4's two-phase reduce must
+    get right, at the tolerances of the tests above."""
+
+    @pytest.mark.parametrize("case", ["far_means", "all_contribute", "half_stopped"])
+    def test_forward_both_modes(self, case):
+        _need_card()
+        rec, starts, counts, nx, ny = _design_case(case)
+        bg = torch.tensor([0.1, 0.5, 0.9], device="cuda")
+        got = tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg)
+        out, tex = tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg, store_t=True)
+        torch.cuda.synchronize()
+        assert torch.equal(out, got)
+        want, (evals, contribs) = tpt.composite_fwd_plain(rec, starts, counts, nx, ny, bg,
+                                                          return_work=True)
+        _b3_close(got, want)
+        if case == "all_contribute":  # no pixel stops, every pixel takes every pair
+            assert evals == contribs == 256 * int(counts.sum())
+        walk = tpt._SegmentWalk(rec, starts, counts, nx, ny)
+        for k, c in enumerate(walk):
+            g = tex[walk.starts[c.act] // 128 + k]
+            err = torch.where(c.reached, (g - c.texcl).abs() / c.texcl.clamp_min(1e-4),
+                              torch.zeros((), device="cuda"))
+            assert err.max().item() <= 1e-5
+        if case == "half_stopped":  # the top half stopped, the bottom half did not
+            assert bool(walk.done[:, :128].all()) and not walk.done[:, 128:].any()
+
+    @pytest.mark.parametrize("case", ["far_means", "all_contribute", "half_stopped"])
+    def test_backward_both_modes(self, case):
+        _need_card()
+        rec, starts, counts, nx, ny = _design_case(case)
+        bg = torch.tensor([0.1, 0.5, 0.9], device="cuda")
+        out, tex = tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg, store_t=True)
+        dout = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(1),
+                           device="cuda")
+        replay = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
+        stored = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout,
+                                          aligned=True, texcl=tex)
+        again = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout, aligned=True,
+                                         texcl=tex)
+        torch.cuda.synchronize()
+        assert torch.equal(replay, stored) and torch.equal(stored, again)
+        _b4_close(replay, tpt.composite_bwd_plain(rec, starts, counts, nx, ny, out, dout))
+
+    def test_packed_layout(self):
+        """Segments that start anywhere in an odd NC: B3 without the store
+        and B4 replaying against their plain versions, a second launch
+        bitwise equal; the stored modes refuse the layout."""
+        _need_card()
+        rec, starts, counts, nx, ny = _design_case("packed")
+        assert rec.shape[1] % 2 == 1 and bool((starts[:-1] % 4 != 0).any())
+        bg = torch.tensor([0.1, 0.5, 0.9], device="cuda")
+        out = tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg)
+        torch.cuda.synchronize()
+        _b3_close(out, tpt.composite_fwd_plain(rec, starts, counts, nx, ny, bg))
+        dout = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(2),
+                           device="cuda")
+        got = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
+        again = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        want = tpt.composite_bwd_plain(rec, starts, counts, nx, ny, out, dout)
+        _b4_close(got, want)
+        lane = torch.arange(rec.shape[1], device="cuda")
+        walked = ((lane[None] >= starts[:-1, None].long())
+                  & (lane[None] < (starts[:-1] + counts).long()[:, None])).any(0)
+        assert not got[:, ~walked].any()  # lanes between segments stay zero
+        with pytest.raises(ValueError):
+            tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg, store_t=True)
+        with pytest.raises(ValueError):
+            tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout,
+                                     texcl=torch.zeros(rec.shape[1] // 128, 256, 128,
+                                                       device="cuda"))
