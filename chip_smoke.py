@@ -18,7 +18,11 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      N = 5000 with its invalid tail scored exactly 0; in each mode the
      probabilities of the logits tile that B1 and B2 share summing to 1
      against B1's m and s (MASS_TOL); B5 on a truncated
-     1232x816 layout and on all-empty tiles (equal); B3 on 64 tiles of
+     1232x816 layout and on all-empty tiles (equal), and on the layouts of
+     tests/align_layouts.py that its CPU and card tests share (empty tiles
+     between full ones, exact multiples of 128, a tile over three chunks,
+     aligned demand exactly nc and over it, one tile, no tile): equal, a
+     second launch bitwise, the tail all sentinel; B3 on 64 tiles of
      2,000-2,600 pairs each, opaque (tiles exit early) and translucent, and
      on the same tiles B3 with the transmittance store (``out`` bitwise as
      without it, the store against the plain version's) and B4 under a
@@ -78,8 +82,20 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      (ptxas), each CUDA kernel's share of one B1 call, B1's share of a
      served image's device time, B3's and B4's of a render's and a 3DGS
      step's, and B3 and B4 at each of their compile-time choices on camera
-     0's layout, timed in turns. B1's ``launches`` counts calls of its wrapper,
-     each four CUDA kernels; B2's, each ten; B5's, B3's and B4's, one each.
+     0's layout, timed in turns, and B5's wrapper's host time per call.
+     B1's ``launches`` counts calls of its wrapper, each four CUDA kernels;
+     B2's, each ten; B5's, B3's and B4's, one each;
+  8. the pose driver at full width: a Blender-format dataset of the render
+     scene written with the port's PNG writer (4 train and 2 test 800x800
+     RGBA images from render_eval on a ring), an experiment directory
+     (cfg_args, point_cloud/iteration_30000/point_cloud.ply), then
+     ``apps.pose_eval.main`` with --fused_attention, 32,768 rays, 32
+     images per step and 4 steps (depth cut from 1,500), DINOv2-S/14 and
+     the 384-wide id module with random weights. The driver swallows a
+     scene's RuntimeError, so the run is held to its output, not its
+     return: one result per test image, finite errors, id_module.npz and
+     pose_metrics.jsonl written, no traceback, and launch counts zeroed
+     just before and read just after (B1 132, B2 128, B3, B4, B5 none).
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -92,6 +108,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -160,6 +177,10 @@ ZERO_GRAD_PARAMS = ("attention.k.bias", "ray_mlp.l4.bias")
 N_TRAIN_CAMERAS = 16
 N_TRAIN_STEPS = 12
 N_PLAIN_STEPS = 4
+# the pose driver (phase 8): POSE_TRAIN + POSE_TEST images of the render
+# scene, the default ray budget and batch, the depth cut from 1,500 steps
+POSE_TRAIN, POSE_TEST, POSE_FOV = 4, 2, 0.9
+POSE_RAYS, POSE_BATCH, POSE_STEPS = 32768, 32, 4
 KERNEL_SOURCES = ("attention_scores", "attention_scores_bwd", "align_compact",
                   "composite_fwd", "composite_bwd")
 # the compile-time choices of B3 and B4 that phase 7 times (-D of a build
@@ -277,6 +298,176 @@ def cuda_ms_back_to_back(fn, calls: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / calls
+
+
+def write_blender_dataset(scene, root: str) -> None:
+    """A Blender-format dataset of ``scene`` with the port's PNG writer:
+    POSE_TRAIN + POSE_TEST 800x800 RGBA images rendered with render_eval
+    from cameras on a ring at radius 3.1, and transforms_{train,test}.json
+    in the Blender convention (OpenGL camera axes). The alpha is the
+    render's coverage, 1 - T, from one render over black and one over
+    white; the colour is stored straight (divided by the alpha)."""
+    from sixdgs_torch.scene.cameras import make_synthetic_camera
+    from sixdgs_torch.scene.png import write_png
+    from sixdgs_torch.train.gs_trainer import render_eval
+
+    black = torch.zeros(3, device=scene.xyz.device)
+    white = torch.ones(3, device=scene.xyz.device)
+    n = POSE_TRAIN + POSE_TEST
+    frames = {"train": [], "test": []}
+    for i in range(n):
+        split = "train" if i < POSE_TRAIN else "test"
+        ang = 2 * math.pi * (i + 0.25) / n
+        pos = np.array([3 * math.cos(ang), 0.8, 3 * math.sin(ang)])
+        c2w = look_at_c2w(pos).astype(np.float64)
+        R = c2w[:3, :3]
+        cam = make_synthetic_camera(IMAGE_HW, IMAGE_HW, POSE_FOV, POSE_FOV, R, -R.T @ pos,
+                                    uid=i, name=f"r_{i}")
+        over_black = render_eval(scene, cam, black, scene.max_sh_degree)
+        over_white = render_eval(scene, cam, white, scene.max_sh_degree)
+        alpha = (1.0 - (over_white - over_black).mean(0)).clamp(0.0, 1.0)
+        rgb = (over_black / alpha.clamp_min(1e-6)).clamp(0.0, 1.0)
+        rgba = torch.cat([rgb, alpha[None]]).permute(1, 2, 0)
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        write_png(os.path.join(root, split, f"r_{i}.png"),
+                  (rgba * 255.0 + 0.5).to(torch.uint8).cpu().numpy())
+        gl = c2w.copy()
+        gl[:3, 1:3] *= -1  # OpenCV -> OpenGL camera axes
+        frames[split].append({"file_path": f"./{split}/r_{i}",
+                              "transform_matrix": gl.tolist()})
+    for split, fr in frames.items():
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as fh:
+            json.dump({"camera_angle_x": POSE_FOV, "frames": fr}, fh)
+
+
+def c2w_errors(results) -> np.ndarray:
+    """Per-entry (translation error, angular error in degrees) of a results
+    list, from its predicted and ground-truth camera-to-world matrices."""
+    out = []
+    for r in results:
+        p, g = np.asarray(r["pred_c2w"]), np.asarray(r["gt_c2w"])
+        cos = (np.trace(p[:3, :3].T @ g[:3, :3]) - 1) / 2
+        out.append((np.linalg.norm(p[:3, 3] - g[:3, 3]),
+                    math.degrees(math.acos(min(1.0, max(-1.0, cos))))))
+    return np.asarray(out)
+
+
+def phase_pose_driver(ak, pt, scene) -> dict:
+    """The pose driver at full width: ``apps.pose_eval.main`` on an
+    experiment directory of the render scene, with --fused_attention.
+
+    The driver catches a RuntimeError per scene (as the JAX driver does),
+    prints it and exits normally, and torch reports CUDA faults as
+    RuntimeError: so the run is held to what it must have written, not to
+    its return. Launches: POSE_STEPS steps of POSE_BATCH images, each image
+    one B1 forward and one B2 backward (no validation: it runs every 20
+    steps), then two evaluations (target scores, predicted scores) of the
+    POSE_TEST test images, one B1 each under no_grad: B1 POSE_STEPS *
+    POSE_BATCH + 2 * POSE_TEST = 132, B2 POSE_STEPS * POSE_BATCH = 128,
+    B3, B4 and B5 none."""
+    import contextlib
+    import io
+
+    from sixdgs_torch.apps import pose_eval
+    from sixdgs_torch.pose import evaluate, trainer
+    from sixdgs_torch.utils.config import ModelConfig, write_cfg_args
+
+    tmp = tempfile.mkdtemp(prefix="pose_driver_")
+    data = os.path.join(tmp, "ring")
+    t0 = time.perf_counter()
+    write_blender_dataset(scene, data)
+    exp = os.path.join(tmp, "exp", "synthetic_ring_0001")
+    cfg = vars(ModelConfig(source_path=data, model_path=exp, eval=True))
+    write_cfg_args(exp, cfg)
+    ply = os.path.join(exp, "point_cloud", "iteration_30000", "point_cloud.ply")
+    os.makedirs(os.path.dirname(ply))
+    scene.save_ply(ply)
+    log(f"phase 8 pose driver: dataset ({POSE_TRAIN} train, {POSE_TEST} test images of "
+        f"{IMAGE_HW}x{IMAGE_HW}) and experiment dir written in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # time the training run and each evaluation from inside the driver
+    timing = {"train_s": [], "eval_s_per_image": []}
+    run, test = trainer.PoseTrainer.run, evaluate.test_pose_estimation
+
+    def timed_run(self, *a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = run(self, *a, **k)
+        torch.cuda.synchronize()
+        timing["train_s"].append(time.perf_counter() - t)
+        return out
+
+    def timed_test(*a, **k):
+        out = test(*a, **k)
+        timing["eval_s_per_image"].append(out[5])
+        return out
+
+    counters = (ak.attention_scores_fused, ak.attention_scores_bwd, pt._align_compact,
+                pt.pallas_composite_fwd, pt.pallas_composite_bwd)
+    out_json = os.path.join(tmp, "pose_results.json")
+    argv = ["--exp_path", os.path.dirname(exp), "--out_path", out_json, "--data_type",
+            "blender", "--fused_attention", "--ray_budget", str(POSE_RAYS), "--batch",
+            str(POSE_BATCH), "--n_iterations", str(POSE_STEPS)]
+    err = io.StringIO()
+    trainer.PoseTrainer.run, evaluate.test_pose_estimation = timed_run, timed_test
+    try:
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            pose_eval.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = [c.launches for c in counters]
+    finally:
+        trainer.PoseTrainer.run, evaluate.test_pose_estimation = run, test
+    log(f"phase 8 pose driver: pose_eval.main({' '.join(argv)}) in {wall:.2f} s; launches "
+        f"B1 {launches[0]}, B2 {launches[1]}, B5 {launches[2]}, B3 {launches[3]}, "
+        f"B4 {launches[4]}")
+    stderr = err.getvalue()
+    if stderr:
+        log("driver stderr:\n" + stderr[-4000:])
+    if "Traceback" in stderr:
+        raise AssertionError("the driver printed a traceback")
+    with open(out_json) as fh:
+        results = json.load(fh)
+    errors = c2w_errors(results)
+    if len(results) != POSE_TEST or not np.isfinite(errors).all():
+        raise AssertionError(f"{len(results)} results (expected {POSE_TEST}), errors "
+                             f"{errors.tolist()}")
+    for name in ("id_module.npz", "pose_metrics.jsonl"):
+        if not os.path.exists(os.path.join(exp, name)):
+            raise AssertionError(f"the driver wrote no {name}")
+    expected = [POSE_STEPS * POSE_BATCH + 2 * POSE_TEST, POSE_STEPS * POSE_BATCH, 0, 0, 0]
+    if launches != expected:
+        raise AssertionError(f"pose driver launches {launches}, expected {expected}")
+    step_ms = 1e3 * timing["train_s"][0] / POSE_STEPS
+    image_ms = [1e3 * t for t in timing["eval_s_per_image"]]
+    log(f"phase 8 pose driver: {len(results)} results, per-image (translation, angular "
+        f"deg) errors {errors.tolist()} (random weights, 4 steps); wall {wall:.2f} s, "
+        f"{step_ms:.1f} ms per training step (mean of {POSE_STEPS}, the first ray "
+        f"generation included), {image_ms[0]:.1f} and {image_ms[1]:.1f} ms per evaluated "
+        f"image (target and predicted scores); {gpu_line()}")
+    shutil.rmtree(tmp)
+    log("phase 8 pose driver: ok")
+    return {"launches": launches, "wall_s": wall, "step_ms": step_ms,
+            "image_ms": image_ms}
+
+
+def host_ms(fn, calls: int = 200) -> float:
+    """Host time per call of ``calls`` calls issued back to back: the
+    wrapper's own work, where the device finishes each call before the host
+    issues the next."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0) / calls
 
 
 def variant_times(pt, b3_args, out, dout, tex) -> dict:
@@ -920,6 +1111,25 @@ def phase_raster_kernels(pt, rng):
             f"{torch.equal(got, want)}")
         if not torch.equal(got, want):
             raise AssertionError(f"B5 {label} differs from its plain version")
+    # the layouts of the CPU parity test and the card test: empty tiles
+    # between full ones, exact multiples of 128, a tile over three chunks,
+    # aligned demand exactly nc and over it (clamp-cut tiles), one tile, none
+    from align_layouts import ALIGN_LAYOUTS, align_layout
+
+    for label, (counts, nc) in ALIGN_LAYOUTS.items():
+        gidx, starts, starts_al = (torch.tensor(a, device="cuda")
+                                   for a in align_layout(counts, nc, P=N_GAUSSIANS))
+        got = pt._align_compact(gidx, starts, starts_al, len(counts), N_GAUSSIANS)
+        again = pt._align_compact(gidx, starts, starts_al, len(counts), N_GAUSSIANS)
+        want = pt.align_compact_plain(gidx, starts, starts_al, len(counts), N_GAUSSIANS)
+        torch.cuda.synchronize()
+        tail = got[int(starts_al[-1]):]
+        ok = (torch.equal(got, want) and torch.equal(again, got)
+              and bool((tail == N_GAUSSIANS).all()))
+        log(f"B5 layout {label}: {len(counts)} tiles, nc {nc}, tail {tail.numel()}; equal "
+            f"to plain, second launch bitwise, tail all sentinel: {ok}")
+        if not ok:
+            raise AssertionError(f"B5 layout {label} failed")
     bg = torch.tensor([0.1, 0.5, 0.9], device="cuda")
     for label, opacity in (("deep opaque", (0.3, 0.99)), ("deep translucent", (0.001, 0.02))):
         rec, starts, counts = synthetic_records(rng.integers(2000, 2600, 64), 8, 8, rng,
@@ -1349,7 +1559,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    sys.path.insert(1, os.path.join(root, "tests"))  # align_layouts, B5's shared layouts
     from sixdgs_torch.ops import _build
     from sixdgs_torch.ops import attention_kernel as ak
     from sixdgs_torch.ops.rasterizer import pallas_tiles as pt
@@ -1590,8 +1802,12 @@ def main() -> int:
     b3_plain_ms = cuda_ms(lambda: pt.composite_fwd_plain(*b3_args), reps=5, warmup=1)
     b5_bound_ms, b5_bound_by = b5_bound(lay)
     b3_bound_ms, b3_bound_by = b3_bound(render["work"], lay)
-    log(f"B5 (nc {lay.nc}): {b5_ms:.4f} ms, plain {b5_plain_ms:.4f} ms, bound "
-        f"{b5_bound_ms:.4f} ms ({b5_bound_by})")
+    b5_back_ms = cuda_ms_back_to_back(lambda: pt._align_compact(*b5_args))
+    b5_host = host_ms(lambda: pt._align_compact(*b5_args))
+    log(f"B5 (nc {lay.nc}): {b5_ms:.4f} ms, back to back {b5_back_ms:.4f} ms, device "
+        f"{render_device['b5_ms']:.4f} ms in the render's profile, plain {b5_plain_ms:.4f} "
+        f"ms, bound {b5_bound_ms:.4f} ms ({b5_bound_by}); wrapper host time {b5_host:.4f} "
+        f"ms per call; ptxas: " + "; ".join(ptxas_report(_build, "align_compact")))
     log(f"B3 ({lay.n_tiles} tiles, {int(lay.counts_k.sum())} pairs, {render['work'][0]} "
         f"evaluations): {b3_ms:.4f} ms, plain {b3_plain_ms:.3f} ms, bound "
         f"{b3_bound_ms:.4f} ms ({b3_bound_by})")
@@ -1653,15 +1869,19 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
+    # 8. the pose driver at full width
+    driver = phase_pose_driver(ak, pt, scene)
+
     records = [{
         "name": "B1 attention_scores_fused (_fwd_kernel_train; 4 CUDA kernels per launch, "
                 "reassociated, mma.sync in bf16 pieces, one logits tile with B2)",
         "route": "cuda",
         "source": "sixdgs_torch/csrc/attention_scores.cu",
         "replaces": "sixdgs_tpu/ops/attention_kernel.py:116",
-        # this slice's path (training); the serving path's count beside it
-        "launches": train_b1,
-        "launches_by_path": {"serving": launches, "training": train_b1},
+        # the pose driver's run; each other path's count beside it
+        "launches": driver["launches"][0],
+        "launches_by_path": {"serving": launches, "training": train_b1,
+                             "pose_driver": driver["launches"][0]},
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -1675,8 +1895,9 @@ def main() -> int:
         "route": "cuda",
         "source": "sixdgs_torch/csrc/attention_scores_bwd.cu",
         "replaces": "sixdgs_tpu/ops/attention_kernel.py:136",
-        "launches": train_b2,
-        "launches_by_path": {"serving": 0, "training": train_b2},
+        "launches": driver["launches"][1],
+        "launches_by_path": {"serving": 0, "training": train_b2,
+                             "pose_driver": driver["launches"][1]},
         "max_abs_err": b2_max_abs_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
@@ -1685,19 +1906,24 @@ def main() -> int:
         # no single PyTorch call computes the softmax-column-sum VJP
         "library_ms": None,
     }, {
-        "name": "B5 _align_compact (_align_kernel)",
+        "name": "B5 _align_compact (_align_kernel; tile-major, one warp per tile, "
+                "16-byte stores)",
         "route": "cuda",
         "source": "sixdgs_torch/csrc/align_compact.cu",
         "replaces": "sixdgs_tpu/ops/rasterizer/pallas_tiles.py:892",
-        # this slice's path (3DGS training); the render path's count beside it
+        # the 3DGS training path; the render path's count beside it
         "launches": gs_run["launches"]["b5"],
         "launches_by_path": {"render": render["launches"][0],
-                             "gs_training": gs_run["launches"]["b5"]},
+                             "gs_training": gs_run["launches"]["b5"],
+                             "pose_driver": driver["launches"][2]},
         "max_abs_err": render["b5_err"],
         "ms": b5_ms,
         "plain_ms": b5_plain_ms,
         "bound_ms": b5_bound_ms,
         "bound_by": b5_bound_by,
+        "ms_back_to_back": b5_back_ms,
+        "render_profile_ms": render_device["b5_ms"],
+        "host_ms": b5_host,
         # no single PyTorch call computes the aligned relocation
         "library_ms": None,
     }, {
@@ -1751,6 +1977,7 @@ def main() -> int:
         + f"; first-step gradients vs plain twin, worst err / scale {gs_run['grad_err']:.2e}")
     log(f"render_eval per image: {render_ms:.3f} ms, {json.dumps(render_device)}; image vs "
         f"golden model max abs {render['render_err']:.3e}")
+    log("pose driver: " + json.dumps(driver))
     log(gpu_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -12,14 +12,17 @@ Layout (ported so far):
             SSIM / PSNR / L1, exact kNN, rasterizer/ (projection, golden
             compositor, tile binning, the tile rasterizer on B5, B3 and,
             for gradients, B4)
-  scene/    GaussianScene, byte-compatible PLY codec, structures, cameras
+  apps/     the pose driver (pose_eval)
+  scene/    GaussianScene, byte-compatible PLY codec, structures, cameras,
+            COLMAP / Blender / T&T loaders, an 8-bit PNG codec for
+            machines without Pillow
   rays/     quadricell surface sampling, PCA normals, ray engine
   pose/     DINOv2 ViT-S/14, ray MLP, attention, camera-up head, loss,
             solver, evaluation, id-module trainer (Adafactor),
             camera-up augmentations
   train/    the 3DGS trainer (train_step, GSTrainer, render_eval),
             per-group Adam, densification, checkpoints
-  utils/    configs, metrics writer
+  utils/    configs and cfg_args, metrics writer, the gsio loader
   weights   the JAX package's param dicts <-> the port's modules
 
 Entry points run on "cuda" unless the caller passes ``device="cpu"``.

@@ -101,6 +101,8 @@ def align_compact_plain(gidx_c, starts, starts_al, n_tiles: int, sentinel: int):
     ``sentinel`` everywhere else."""
     nc = gidx_c.shape[0]
     dev = gidx_c.device
+    if n_tiles == 0:  # no tile owns a chunk
+        return torch.full((nc,), sentinel, dtype=torch.int32, device=dev)
     starts = starts.to(torch.int64)
     starts_al = starts_al.to(torch.int64)
     c = torch.arange(nc, dtype=torch.int64, device=dev)
@@ -120,7 +122,9 @@ def _align_compact(gidx_c, starts, starts_al, n_tiles: int, sentinel: int):
     ``starts``: real per-tile segment starts [n_tiles+1]; ``starts_al``: the
     KB-aligned starts (clamped to nc). Padding lanes and lanes beyond the
     aligned total carry ``sentinel``. B5 on CUDA tensors, the plain version
-    on CPU tensors."""
+    on CPU tensors. The kernel needs nc a multiple of KB (the rasterizer's
+    is a multiple of ALIGN_CPB * KB) and 16-byte aligned int32 storage of
+    ``gidx_c`` and the output; it raises otherwise."""
     _check_device("_align_compact", gidx_c, starts, starts_al)
     if gidx_c.device.type == "cpu":
         return align_compact_plain(gidx_c, starts, starts_al, n_tiles, sentinel)
@@ -128,10 +132,17 @@ def _align_compact(gidx_c, starts, starts_al, n_tiles: int, sentinel: int):
     if starts.shape != (n_tiles + 1,) or starts_al.shape != (n_tiles + 1,):
         raise ValueError(f"starts {tuple(starts.shape)} / starts_al "
                          f"{tuple(starts_al.shape)} must be [{n_tiles + 1}]")
+    if nc % KB:
+        raise ValueError(f"_align_compact: nc {nc} is not a multiple of {KB}")
     out = torch.empty(nc, dtype=torch.int32, device=gidx_c.device)
     if nc == 0:
         return out
-    ins = [x.to(torch.int32).contiguous() for x in (gidx_c, starts, starts_al)]
+    # no copy where the inputs are int32 and contiguous already (the
+    # rasterizer's are)
+    ins = [x if x.dtype == torch.int32 and x.is_contiguous() else
+           x.to(torch.int32).contiguous() for x in (gidx_c, starts, starts_al)]
+    if ins[0].data_ptr() % 16 or out.data_ptr() % 16:
+        raise ValueError("_align_compact: gidx_c and out must be 16-byte aligned")
     _build.launch(_library("align_compact").b5_align_compact_launch, *ins,
                   n_tiles, sentinel, nc, out)
     _align_compact.launches += 1

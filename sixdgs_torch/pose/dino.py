@@ -7,8 +7,11 @@ LayerNorm eps 1e-6, exact GELU; the output of interest is
 ``x_norm_patchtokens``. The patch embedding keeps the hub checkpoint's conv
 weight [D, 3, 14, 14] and runs as a reshape plus f32 matmul (the same map as
 the stride-14 conv, without cuDNN's TF32). Weights are random
-(``init_params``) or carried over from the reference package's param dicts
-by ``sixdgs_torch.weights.dino_from_numpy``.
+(``init_params``), carried over from the reference package's param dicts
+by ``sixdgs_torch.weights.dino_from_numpy``, or loaded by ``load_params``:
+a torch.hub checkpoint (``.pth``, the hub's key names) straight into
+``DinoViT``, or an ``.npz`` of the JAX package's flat names
+(``flatten_params`` writes one from a model).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -135,3 +139,124 @@ def init_params(generator: Optional[torch.Generator] = None,
             normal_(lin.weight, 1.0 / math.sqrt(lin.in_features))
             lin.bias.zero_()
     return model.to(device)
+
+
+# ------------------------------------------------------------ weight loaders
+
+# torch.hub dinov2_vits14 block keys -> DinoViT's
+_HUB_BLOCK_KEYS = {
+    "norm1.weight": "norm1.weight", "norm1.bias": "norm1.bias",
+    "attn.qkv.weight": "qkv.weight", "attn.qkv.bias": "qkv.bias",
+    "attn.proj.weight": "proj.weight", "attn.proj.bias": "proj.bias",
+    "ls1.gamma": "ls1",
+    "norm2.weight": "norm2.weight", "norm2.bias": "norm2.bias",
+    "mlp.fc1.weight": "fc1.weight", "mlp.fc1.bias": "fc1.bias",
+    "mlp.fc2.weight": "fc2.weight", "mlp.fc2.bias": "fc2.bias",
+    "ls2.gamma": "ls2",
+}
+
+
+def convert_torch_state_dict(state_dict) -> Dict[str, torch.Tensor]:
+    """A torch.hub dinov2_vits14 state dict -> ``DinoViT``'s state dict
+    (the hub's ``mask_token`` is unused and dropped; blocks are taken by
+    key presence, so shortened test dicts convert too)."""
+
+    def t(name):
+        return torch.as_tensor(np.asarray(state_dict[name].detach().cpu().numpy()
+                                          if hasattr(state_dict[name], "detach")
+                                          else state_dict[name]), dtype=torch.float32)
+
+    dim = t("cls_token").numel()
+    out = {
+        "patch_embed.weight": t("patch_embed.proj.weight"),
+        "patch_embed.bias": t("patch_embed.proj.bias"),
+        "cls_token": t("cls_token").reshape(1, dim),
+        "pos_embed": t("pos_embed").reshape(-1, dim),
+        "norm.weight": t("norm.weight"),
+        "norm.bias": t("norm.bias"),
+    }
+    i = 0
+    while f"blocks.{i}.norm1.weight" in state_dict:
+        for hub, ours in _HUB_BLOCK_KEYS.items():
+            out[f"blocks.{i}.{ours}"] = t(f"blocks.{i}.{hub}")
+        i += 1
+    return out
+
+
+def load_params(path_or_none: Optional[str], generator: Optional[torch.Generator] = None,
+                device="cuda") -> DinoViT:
+    """DINOv2 ViT-S/14 from converted weights, or random: an ``.npz`` of the
+    JAX package's flat names, a torch checkpoint with the hub's key names
+    (``.pth``, optionally under "model"), or with no path ``init_params``
+    drawn from ``generator``."""
+    if path_or_none is None:
+        return init_params(generator, device=device)
+    if path_or_none.endswith(".npz"):
+        from sixdgs_torch.weights import dino_from_numpy
+
+        with np.load(path_or_none) as data:
+            return dino_from_numpy(unflatten_params(dict(data)), device=device)
+    sd = torch.load(path_or_none, map_location="cpu")
+    if isinstance(sd, dict) and "model" in sd:
+        sd = sd["model"]
+    sd = convert_torch_state_dict(sd)
+    dim = sd["cls_token"].shape[1]
+    depth = sum(1 for k in sd if k.endswith(".ls1"))
+    model = DinoViT(dim, depth, num_patches=sd["pos_embed"].shape[0] - 1)
+    model.load_state_dict(sd)
+    return model.to(device)
+
+
+def flatten_params(model: DinoViT) -> Dict[str, np.ndarray]:
+    """A model as the JAX package's flat ``.npz`` names and layouts (patch
+    embedding [14, 14, 3, D], dense weights [in, out]), which
+    sixdgs_tpu.pose.dino.unflatten_params reads."""
+
+    def a(x: torch.Tensor) -> np.ndarray:
+        return x.detach().to("cpu", torch.float32).numpy().copy()
+
+    flat = {
+        "patch_embed.w": a(model.patch_embed.weight.permute(2, 3, 1, 0)),
+        "patch_embed.b": a(model.patch_embed.bias),
+        "cls_token": a(model.cls_token),
+        "pos_embed": a(model.pos_embed),
+        "norm.scale": a(model.norm.weight),
+        "norm.bias": a(model.norm.bias),
+    }
+    for i, blk in enumerate(model.blocks):
+        pre = f"blocks.{i}."
+        for name in ("norm1", "norm2"):
+            ln = getattr(blk, name)
+            flat[pre + f"{name}.scale"] = a(ln.weight)
+            flat[pre + f"{name}.bias"] = a(ln.bias)
+        for name in ("qkv", "proj", "fc1", "fc2"):
+            lin = getattr(blk, name)
+            flat[pre + f"{name}.w"] = a(lin.weight.T)
+            flat[pre + f"{name}.b"] = a(lin.bias)
+        flat[pre + "ls1"] = a(blk.ls1)
+        flat[pre + "ls2"] = a(blk.ls2)
+    return flat
+
+
+def unflatten_params(flat: Dict[str, np.ndarray]) -> Dict:
+    """The JAX package's flat names -> its nested param dict, as numpy
+    arrays (what ``weights.dino_from_numpy`` takes)."""
+    params = {
+        "patch_embed": {"w": flat["patch_embed.w"], "b": flat["patch_embed.b"]},
+        "cls_token": flat["cls_token"],
+        "pos_embed": flat["pos_embed"],
+        "norm": {"scale": flat["norm.scale"], "bias": flat["norm.bias"]},
+        "blocks": [],
+    }
+    i = 0
+    while f"blocks.{i}.ls1" in flat:
+        pre = f"blocks.{i}."
+        blk = {}
+        for name in ("norm1", "qkv", "proj", "norm2", "fc1", "fc2"):
+            keys = ("scale", "bias") if name.startswith("norm") else ("w", "b")
+            blk[name] = {leaf: flat[pre + f"{name}.{leaf}"] for leaf in keys}
+        blk["ls1"] = flat[pre + "ls1"]
+        blk["ls2"] = flat[pre + "ls2"]
+        params["blocks"].append(blk)
+        i += 1
+    return params

@@ -19,6 +19,7 @@ import torch
 
 from sixdgs_torch.ops import attention_kernel as tak
 from sixdgs_torch.ops.rasterizer import pallas_tiles as tpt
+from align_layouts import ALIGN_LAYOUTS, align_layout  # tests/align_layouts.py
 
 
 def _b1_inputs(seed, P=256, d=384, N=5000, n_invalid=700):
@@ -214,32 +215,51 @@ def _layout(counts, nc=None, seed=0, P=100_000):
 
 @pytest.mark.cuda
 class TestAlignCompactKernel:
-    """B5 equals its plain version exactly (int32 data movement)."""
+    """B5 equals its plain version exactly (int32 data movement), a second
+    launch is bitwise equal, and the tail past the aligned total is all
+    sentinel."""
 
     @pytest.mark.parametrize("case", ["ragged", "empty_tiles", "all_empty", "truncated",
-                                      "full_1232x816"])
+                                      "full_1232x816", *ALIGN_LAYOUTS])
     def test_kernel_equals_plain(self, case):
         _need_card()
         rng = np.random.default_rng(1)
-        counts, nc = {
-            "ragged": ([5, 0, 128, 129, 300, 0, 1, 127, 1000], None),
-            "empty_tiles": (np.where(rng.uniform(size=300) < 0.5, 0,
-                                     rng.integers(1, 400, 300)), None),
-            "all_empty": ([0] * 64, 1024),
-            # aligned demand 1408 > nc: trailing tiles are cut
-            "truncated": ([100, 200, 300, 150, 90, 130], 1024),
-            # the render path's layout: 77 x 51 tiles, ~119 pairs per tile
-            "full_1232x816": (rng.poisson(119, 77 * 51), 1 << 20),
-        }[case]
-        gidx, starts, starts_al = _layout(counts, nc)
+        if case in ALIGN_LAYOUTS:  # the layouts of the CPU parity test
+            counts, nc = ALIGN_LAYOUTS[case]
+            gidx, starts, starts_al = (torch.tensor(a, device="cuda")
+                                       for a in align_layout(counts, nc, P=100_000))
+        else:
+            counts, nc = {
+                "ragged": ([5, 0, 128, 129, 300, 0, 1, 127, 1000], None),
+                "empty_tiles": (np.where(rng.uniform(size=300) < 0.5, 0,
+                                         rng.integers(1, 400, 300)), None),
+                "all_empty": ([0] * 64, 1024),
+                # aligned demand 1408 > nc: trailing tiles are cut
+                "truncated": ([100, 200, 300, 150, 90, 130], 1024),
+                # the render path's layout: 77 x 51 tiles, ~119 pairs per tile
+                "full_1232x816": (rng.poisson(119, 77 * 51), 1 << 20),
+            }[case]
+            gidx, starts, starts_al = _layout(counts, nc)
         n_tiles = len(counts)
         before = tpt._align_compact.launches
         got = tpt._align_compact(gidx, starts, starts_al, n_tiles, 100_000)
+        again = tpt._align_compact(gidx, starts, starts_al, n_tiles, 100_000)
         torch.cuda.synchronize()
-        assert tpt._align_compact.launches == before + 1
+        assert tpt._align_compact.launches == before + 2
         want = tpt.align_compact_plain(gidx, starts, starts_al, n_tiles, 100_000)
         assert got.dtype == torch.int32 and got.shape == want.shape
         assert torch.equal(got, want)
+        assert torch.equal(again, got)
+        assert (got[int(starts_al[-1]):] == 100_000).all()
+
+    def test_rejects_what_the_kernel_does_not_take(self):
+        _need_card()
+        gidx, starts, starts_al = _layout([5, 300], 1024)
+        with pytest.raises(ValueError, match="multiple of 128"):
+            tpt._align_compact(gidx[:1000], starts, starts_al, 2, 7)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tpt._align_compact(torch.empty(1025, dtype=torch.int32, device="cuda")[1:],
+                               starts, starts_al, 2, 7)
 
 
 def _records(counts, nx, ny, seed=0, opacity=(0.1, 0.99)):

@@ -50,6 +50,7 @@ from sixdgs_torch.scene import gaussians as tg
 from sixdgs_torch.scene import structures as tstruct
 from sixdgs_torch.train import gs_trainer as ttrain
 from sixdgs_torch.utils import config as tconfig
+from align_layouts import ALIGN_LAYOUTS, align_layout  # tests/align_layouts.py
 
 IMG_ATOL = 3e-5
 
@@ -404,10 +405,23 @@ class TestAlignCompact:
     tests/test_aligned_layout.py."""
 
     @pytest.mark.parametrize("case", ["basic", "all_empty", "exact_fill", "truncated",
-                                      "random"])
+                                      "random", *ALIGN_LAYOUTS])
     def test_matches_pallas(self, case):
         from tests.test_aligned_layout import _np_reference
 
+        if case in ALIGN_LAYOUTS:  # the layouts the card test and chip_smoke.py share
+            counts, nc = ALIGN_LAYOUTS[case]
+            gidx, starts, starts_al = align_layout(counts, nc)
+            want = jpt._align_compact(jnp.asarray(gidx), jnp.asarray(starts),
+                                      jnp.asarray(starts_al), len(counts), 1000,
+                                      interpret=True)
+            np.testing.assert_array_equal(
+                starts_al, np.asarray(jpt._aligned_starts(jnp.asarray(starts), nc)[0]))
+            got = tpt._align_compact(_t(gidx), _t(starts), _t(starts_al), len(counts), 1000)
+            np.testing.assert_array_equal(_np(got), np.asarray(want))
+            assert not (_np(got) == -7).any()  # no lane past a tile's run
+            assert (_np(got)[starts_al[-1]:] == 1000).all()  # the tail
+            return
         counts, nc = {
             "basic": ([5, 0, 128, 129, 300, 0, 1, 127], 2048),
             "all_empty": ([0] * 16, 1024),
