@@ -15,7 +15,10 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      all three precision modes, a partial patch mask and a padded tail of
      invalid rays, plus B2 with every ray invalid, and each launched twice
      on the same inputs bitwise equal in each mode); B1 at a ragged
-     N = 5000 with its invalid tail scored exactly 0; in each mode the
+     N = 5000 with its invalid tail scored exactly 0; B1 and B2 at
+     SuperPoint's shape (P = 784 patches of width 256, N = 32768, all three
+     modes: the wrapper pads the width to 384 and launches once per 256
+     patches) under the same limits, two calls bitwise equal; in each mode the
      probabilities of the logits tile that B1 and B2 share summing to 1
      against B1's m and s (MASS_TOL); B5 on a truncated
      1232x816 layout and on all-empty tiles (equal), and on the layouts of
@@ -95,7 +98,30 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      scene's RuntimeError, so the run is held to its output, not its
      return: one result per test image, finite errors, id_module.npz and
      pose_metrics.jsonl written, no traceback, and launch counts zeroed
-     just before and read just after (B1 132, B2 128, B3, B4, B5 none).
+     just before and read just after (B1 132, B2 128, B3, B4, B5 none);
+     then the same driver with --backbone superpoint and random SuperPoint
+     weights written as the JAX package's flat npz (--superpoint_weights):
+     784 patches of width 256, the 256-wide id module, four launches a call
+     (B1 528, B2 512);
+  9. the 3DGS apps at full width on that dataset, whose points3d.ply holds
+     the scene's 262,144 points: ``apps.train_gs.main`` (--rasterizer auto,
+     --eval, 30 iterations from the cloud, --binning_tiers cut so that the
+     fresh cloud's frames fit the default pair budget; held to its PLY,
+     cfg_args, cameras.json, a finite metrics.jsonl loss that falls from the
+     first epoch to the last, no dropped gradient, and launches: B3 with the
+     store, B4 and B5 once per step, B5 and B3 once per evaluation render;
+     the share of tile coverage the cut tiers drop is logged from every
+     step's binning telemetry, which is held to its own arithmetic), then 4
+     steps at the app's default tiers (held to the documented rule: a step
+     whose aligned demand passes the 2^20 pair budget has its raster
+     gradients dropped; launches, a finite loss, the PLY),
+     ``apps.render.main`` (B5 and B3 once per image; the PNGs' count and
+     size) and ``apps.metrics.main`` with a random VGG LPIPS npz written by
+     the port's save_params (finite SSIM, PSNR and LPIPS); then on the render
+     cell's camera 0 at 1232x816 render() through "tiled" (plain PyTorch)
+     against "pallas" (the kernels), and one train step's gradients the
+     same way, with the train step's, each render's and each metric's time,
+     and the tiled render's time and peak memory.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -124,6 +150,10 @@ N_GAUSSIANS = 262_144
 N_IMAGES = 4
 IMAGE_HW = 800
 KERNEL_NS = (32768, 131072)
+# SuperPoint's shape (28 x 28 patches of 256-dim descriptors): the B1/B2
+# wrappers pad the width to 384 and launch once per 256 patches (4 here)
+SP_P, SP_D = 784, 256
+SP_CHUNKS = -(-SP_P // 256)
 P, D = 256, 384
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, f32 FMA flop/s
 # outside the tensor cores, bf16 tensor-core flop/s
@@ -250,6 +280,21 @@ GS_NOISE = {"features_dc": 0.3, "opacity": 0.5, "xyz": 0.002}
 # through B4, the segment sum and the projection's backward; a flipped stop
 # moves single pairs)
 GS_GRAD_TOL = 1e-3
+# the 3DGS apps (phase 9): train_gs on the phase 8 dataset, the depth cut
+# from 30,000 iterations to APPS_ITERS. Its tiers are cut too (the
+# --binning_tiers a user sets from the binning_* counters): the cloud's 3-NN
+# scales make splats of tens of pixels at 800x800, whose frame at the
+# default tiers wants more aligned pair slots than the 2^20 default budget
+# (phase 9 logs the trained model's demand), which drops the raster
+# gradients of every step until the trainer widens the budget on an
+# adaptation iteration (every 500); a main tier of 4 tiles keeps the
+# demand under 2^20 (phase 9 gates on no dropped gradient), at the price of
+# the tile coverage that the cut tiers drop (phase 9 logs its share)
+APPS_ITERS = 30
+APPS_TIERS = ("4", "4096", "16", "256", "64")
+# ... and a few steps at the app's default tiers, held to the documented
+# grad_dropped rule
+APPS_DEFAULT_ITERS = 4
 # mean_sq_dist_3nn against torch.cdist: the matrix-product form rounds at
 # eps |x|^2 ~ 1e-6 absolute, against squared distances of ~1e-3
 KNN_ATOL, KNN_RTOL = 4e-6, 1e-4
@@ -352,9 +397,30 @@ def c2w_errors(results) -> np.ndarray:
     return np.asarray(out)
 
 
-def phase_pose_driver(ak, pt, scene) -> dict:
+def write_dataset(scene, arrays) -> str:
+    """The Blender-format dataset that phases 8 and 9 share (POSE_TRAIN +
+    POSE_TEST 800x800 RGBA images of the scene, write_blender_dataset), with
+    the scene's 262,144 points and their colours as its points3d.ply, so
+    that 3DGS training starts from them; returns its directory."""
+    from sixdgs_torch.scene.ply_io import store_point_cloud_ply
+
+    tmp = tempfile.mkdtemp(prefix="ring_dataset_")
+    data = os.path.join(tmp, "ring")
+    t0 = time.perf_counter()
+    write_blender_dataset(scene, data)
+    rgb = np.clip(arrays["features_dc"][:, 0] * 0.28209479177387814 + 0.5, 0, 1)
+    store_point_cloud_ply(os.path.join(data, "points3d.ply"), arrays["xyz"],
+                          (rgb * 255).astype(np.uint8))
+    log(f"dataset: {POSE_TRAIN} train, {POSE_TEST} test images of {IMAGE_HW}x{IMAGE_HW} and "
+        f"{arrays['xyz'].shape[0]} points written in {time.perf_counter() - t0:.1f} s")
+    return data
+
+
+def phase_pose_driver(ak, pt, scene, data, backbone: str = "dino") -> dict:
     """The pose driver at full width: ``apps.pose_eval.main`` on an
-    experiment directory of the render scene, with --fused_attention.
+    experiment directory of the render scene over the shared dataset
+    ``data``, with --fused_attention; with ``backbone="superpoint"``, from
+    random SuperPoint weights written as the JAX package's flat npz.
 
     The driver catches a RuntimeError per scene (as the JAX driver does),
     prints it and exits normally, and torch reports CUDA faults as
@@ -363,28 +429,30 @@ def phase_pose_driver(ak, pt, scene) -> dict:
     one B1 forward and one B2 backward (no validation: it runs every 20
     steps), then two evaluations (target scores, predicted scores) of the
     POSE_TEST test images, one B1 each under no_grad: B1 POSE_STEPS *
-    POSE_BATCH + 2 * POSE_TEST = 132, B2 POSE_STEPS * POSE_BATCH = 128,
-    B3, B4 and B5 none."""
+    POSE_BATCH + 2 * POSE_TEST = 132 calls, B2 POSE_STEPS * POSE_BATCH =
+    128, B3, B4 and B5 none. A DINO call is one launch; a SuperPoint call
+    (784 patches of width 256) SP_CHUNKS = 4: B1 528, B2 512."""
     import contextlib
     import io
 
     from sixdgs_torch.apps import pose_eval
-    from sixdgs_torch.pose import evaluate, trainer
+    from sixdgs_torch.pose import evaluate, superpoint, trainer
     from sixdgs_torch.utils.config import ModelConfig, write_cfg_args
 
-    tmp = tempfile.mkdtemp(prefix="pose_driver_")
-    data = os.path.join(tmp, "ring")
-    t0 = time.perf_counter()
-    write_blender_dataset(scene, data)
+    label = f"phase 8 pose driver ({backbone})"
+    tmp = tempfile.mkdtemp(prefix=f"pose_driver_{backbone}_")
     exp = os.path.join(tmp, "exp", "synthetic_ring_0001")
     cfg = vars(ModelConfig(source_path=data, model_path=exp, eval=True))
     write_cfg_args(exp, cfg)
     ply = os.path.join(exp, "point_cloud", "iteration_30000", "point_cloud.ply")
     os.makedirs(os.path.dirname(ply))
     scene.save_ply(ply)
-    log(f"phase 8 pose driver: dataset ({POSE_TRAIN} train, {POSE_TEST} test images of "
-        f"{IMAGE_HW}x{IMAGE_HW}) and experiment dir written in "
-        f"{time.perf_counter() - t0:.1f} s")
+    extra, per_call = [], 1
+    if backbone == "superpoint":
+        npz = os.path.join(tmp, "superpoint.npz")
+        np.savez(npz, **superpoint.flatten_params(superpoint.init_params(
+            torch.Generator().manual_seed(SEED), device="cpu")))
+        extra, per_call = ["--backbone", "superpoint", "--superpoint_weights", npz], SP_CHUNKS
 
     # time the training run and each evaluation from inside the driver
     timing = {"train_s": [], "eval_s_per_image": []}
@@ -408,7 +476,7 @@ def phase_pose_driver(ak, pt, scene) -> dict:
     out_json = os.path.join(tmp, "pose_results.json")
     argv = ["--exp_path", os.path.dirname(exp), "--out_path", out_json, "--data_type",
             "blender", "--fused_attention", "--ray_budget", str(POSE_RAYS), "--batch",
-            str(POSE_BATCH), "--n_iterations", str(POSE_STEPS)]
+            str(POSE_BATCH), "--n_iterations", str(POSE_STEPS)] + extra
     err = io.StringIO()
     trainer.PoseTrainer.run, evaluate.test_pose_estimation = timed_run, timed_test
     try:
@@ -423,7 +491,7 @@ def phase_pose_driver(ak, pt, scene) -> dict:
         launches = [c.launches for c in counters]
     finally:
         trainer.PoseTrainer.run, evaluate.test_pose_estimation = run, test
-    log(f"phase 8 pose driver: pose_eval.main({' '.join(argv)}) in {wall:.2f} s; launches "
+    log(f"{label}: pose_eval.main({' '.join(argv)}) in {wall:.2f} s; launches "
         f"B1 {launches[0]}, B2 {launches[1]}, B5 {launches[2]}, B3 {launches[3]}, "
         f"B4 {launches[4]}")
     stderr = err.getvalue()
@@ -440,20 +508,347 @@ def phase_pose_driver(ak, pt, scene) -> dict:
     for name in ("id_module.npz", "pose_metrics.jsonl"):
         if not os.path.exists(os.path.join(exp, name)):
             raise AssertionError(f"the driver wrote no {name}")
-    expected = [POSE_STEPS * POSE_BATCH + 2 * POSE_TEST, POSE_STEPS * POSE_BATCH, 0, 0, 0]
+    expected = [per_call * (POSE_STEPS * POSE_BATCH + 2 * POSE_TEST),
+                per_call * POSE_STEPS * POSE_BATCH, 0, 0, 0]
     if launches != expected:
-        raise AssertionError(f"pose driver launches {launches}, expected {expected}")
+        raise AssertionError(f"{label} launches {launches}, expected {expected}")
     step_ms = 1e3 * timing["train_s"][0] / POSE_STEPS
     image_ms = [1e3 * t for t in timing["eval_s_per_image"]]
-    log(f"phase 8 pose driver: {len(results)} results, per-image (translation, angular "
+    log(f"{label}: {len(results)} results, per-image (translation, angular "
         f"deg) errors {errors.tolist()} (random weights, 4 steps); wall {wall:.2f} s, "
         f"{step_ms:.1f} ms per training step (mean of {POSE_STEPS}, the first ray "
         f"generation included), {image_ms[0]:.1f} and {image_ms[1]:.1f} ms per evaluated "
         f"image (target and predicted scores); {gpu_line()}")
     shutil.rmtree(tmp)
-    log("phase 8 pose driver: ok")
+    log(f"{label}: ok")
     return {"launches": launches, "wall_s": wall, "step_ms": step_ms,
             "image_ms": image_ms}
+
+
+def launch_counts(ak, pt) -> dict:
+    return {"b1": ak.attention_scores_fused.launches, "b2": ak.attention_scores_bwd.launches,
+            "b5": pt._align_compact.launches, "b3": pt.pallas_composite_fwd.launches,
+            "b3_store": pt.pallas_composite_fwd.store_launches,
+            "b4": pt.pallas_composite_bwd.launches}
+
+
+def zero_launch_counts(ak, pt) -> None:
+    for c in (ak.attention_scores_fused, ak.attention_scores_bwd, pt._align_compact,
+              pt.pallas_composite_fwd, pt.pallas_composite_bwd):
+        c.launches = 0
+    pt.pallas_composite_fwd.store_launches = 0
+
+
+def image_gate(label: str, got, want) -> float:
+    """Two renders of one camera through two compositors: the T_EPS stop
+    flips and nothing else (B3_MAX_ERR, RENDER_SHARE_OVER_1E3)."""
+    err = (got - want).abs()
+    worst, share = err.max().item(), (err > 1e-3).float().mean().item()
+    log(f"{label}: max_abs_err={worst:.3e}; values off by > 1e-3: {int((err > 1e-3).sum())}"
+        f" ({share:.2e}), by > 1e-4: {int((err > 1e-4).sum())} of {err.numel()}")
+    if not (torch.isfinite(got).all() and worst <= B3_MAX_ERR
+            and share <= RENDER_SHARE_OVER_1E3):
+        raise AssertionError(f"{label}: {worst}, {share}")
+    return worst
+
+
+def phase_gs_apps(ak, pt, scene, data, render, gs_run) -> dict:
+    """The 3DGS apps at full width, as a user calls them: ``apps.train_gs``
+    (--rasterizer auto --eval, APPS_ITERS iterations from the dataset's
+    262,144-point cloud, --binning_tiers APPS_TIERS; then APPS_DEFAULT_ITERS
+    steps at the default tiers, held to the grad_dropped rule), ``apps.render`` of the
+    trained model's train and test sets, and ``apps.metrics`` with LPIPS
+    from a random VGG npz written by the port's save_params. Launch counts
+    are zeroed just before each app and read just after: train_gs B3 with
+    the store, B4 and B5 once per step, plus B5 and B3 once per evaluation
+    render (the POSE_TEST test cameras at the last iteration); render B5
+    and B3 once per image. Every step's metrics and time are read from
+    inside the CLI (its trainer's callback and pre_step). Then, on the
+    render cell's camera 0 at 1232x816, render() and one train step through
+    "tiled" (plain PyTorch) against "pallas" (the kernels)."""
+    from sixdgs_torch.apps import metrics as metrics_app
+    from sixdgs_torch.apps import render as render_app
+    from sixdgs_torch.apps import train_gs
+    from sixdgs_torch.pose import lpips
+    from sixdgs_torch.renderer import render as render_fn
+    from sixdgs_torch.scene.cameras import camera_list_from_infos
+    from sixdgs_torch.scene.dataset_loader import load_data
+    from sixdgs_torch.scene.gaussians import PARAM_NAMES, load_ply
+    from sixdgs_torch.scene.png import read_png
+    from sixdgs_torch.train import gs_trainer as gs
+    from sixdgs_torch.utils.config import dotdict, read_cfg_args
+
+    tmp = tempfile.mkdtemp(prefix="gs_apps_")
+    model = os.path.join(tmp, "model")
+    n_images = POSE_TRAIN + POSE_TEST
+
+    # train_gs
+    run = gs.GSTrainer.run
+
+    def train_app(argv):
+        """train_gs.main(argv) with every step's start time and metrics
+        read from inside the CLI -> (wall s, launches, steps, logged)."""
+        steps, logged = [], []
+
+        def observed_run(self, *a, callback=None, pre_step=None, **k):
+            def pre(it, tr):
+                torch.cuda.synchronize()
+                steps.append((it, time.perf_counter()))
+                if pre_step is not None:
+                    pre_step(it, tr)
+
+            def cb(it, metrics, tr):
+                logged.append((it, metrics))
+                if callback is not None:
+                    callback(it, metrics, tr)
+
+            out = run(self, *a, callback=cb, pre_step=pre, **k)
+            torch.cuda.synchronize()
+            steps.append((None, time.perf_counter()))
+            return out
+
+        gs.GSTrainer.run = observed_run
+        try:
+            torch.cuda.synchronize()
+            zero_launch_counts(ak, pt)
+            t0 = time.perf_counter()
+            train_gs.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            return wall, launch_counts(ak, pt), steps, logged
+        finally:
+            gs.GSTrainer.run = run
+
+    def binning(logged):
+        """Every logged step's binning telemetry, held to its own
+        arithmetic: a gaussian emits at most its tier's budget of its tile
+        rectangle, and each dropped_* counts the area past that budget, so
+        the emitted pairs and the dropped counts add up to no more than the
+        visible gaussians' rectangle area -> {counter: [per step]}."""
+        tel = {k: [int(m[f"binning_{k}"]) for _, m in logged]
+               for k in ("dropped_main", "dropped_mid", "dropped_big", "overflow_spill",
+                         "total_area", "real_pairs", "nc_demand", "grad_dropped")}
+        for i in range(len(logged)):
+            dropped = [tel[k][i] for k in ("dropped_main", "dropped_mid", "dropped_big")]
+            if (min(dropped) < 0 or tel["overflow_spill"][i] < 0
+                    or tel["real_pairs"][i] + sum(dropped) > tel["total_area"][i]):
+                raise AssertionError(f"binning telemetry of step {logged[i][0]}: "
+                                     f"{ {k: v[i] for k, v in tel.items()} }")
+        return tel
+
+    def spread(values):
+        return f"{min(values)}-{max(values)}"
+
+    argv = ["--source_path", data, "--model_path", model, "--eval", "--iterations",
+            str(APPS_ITERS), "--test_iterations", str(APPS_ITERS), "--save_iterations",
+            str(APPS_ITERS), "--rasterizer", "auto", "--log_every", "1", "--quiet",
+            "--binning_tiers", *APPS_TIERS]
+    train_wall, launches, steps, logged = train_app(argv)
+    expected = {"b1": 0, "b2": 0, "b5": APPS_ITERS + POSE_TEST, "b3": POSE_TEST,
+                "b3_store": APPS_ITERS, "b4": APPS_ITERS}
+    log(f"phase 9 train_gs.main({' '.join(argv)}) in {train_wall:.2f} s; launches "
+        f"{json.dumps(launches)} (expected {json.dumps(expected)})")
+    if launches != expected:
+        raise AssertionError(f"train_gs launches {launches}, expected {expected}")
+    for f in ("cfg_args", "cameras.json", "input.ply", "metrics.jsonl",
+              f"point_cloud/iteration_{APPS_ITERS}/point_cloud.ply"):
+        if not os.path.exists(os.path.join(model, f)):
+            raise AssertionError(f"train_gs wrote no {f}")
+    with open(os.path.join(model, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    loss = {r["step"]: r["value"] for r in recs
+            if r.get("tag") == "train_loss_patches/total_loss"}
+    if sorted(loss) != list(range(1, APPS_ITERS + 1)) or not all(
+            map(math.isfinite, loss.values())):
+        raise AssertionError(f"metrics.jsonl losses {loss}")
+    # each train camera once per epoch of POSE_TRAIN steps: compare epochs
+    first = statistics.mean(loss[i] for i in range(1, POSE_TRAIN + 1))
+    last_epoch = range((APPS_ITERS // POSE_TRAIN - 1) * POSE_TRAIN + 1,
+                       APPS_ITERS // POSE_TRAIN * POSE_TRAIN + 1)
+    last = statistics.mean(loss[i] for i in last_epoch)
+    tel = binning(logged)
+    dropped, demand = tel["grad_dropped"], tel["nc_demand"]
+    # the share of the visible gaussians' tile coverage that the cut tiers
+    # emit: the rest is composited nowhere
+    emitted = [r / t for r, t in zip(tel["real_pairs"], tel["total_area"])]
+    test_psnr = [r["value"] for r in recs if r.get("tag") == "test/loss_viewpoint - psnr"]
+    log(f"phase 9 train_gs: mean loss of the first epoch {first:.6f}, of iterations "
+        f"{last_epoch.start}-{last_epoch.stop - 1} {last:.6f}; nc_demand "
+        f"{spread(demand)}, grad_dropped {dropped}; test PSNR {test_psnr}; "
+        f"points {[r['value'] for r in recs if r.get('tag') == 'total_points'][::10]}")
+    log(f"phase 9 train_gs binning under --binning_tiers {' '.join(APPS_TIERS)} (per step, "
+        f"min-max): emitted pairs {spread(tel['real_pairs'])} of a tile coverage of "
+        f"{spread(tel['total_area'])}, a share of {min(emitted):.4f}-{max(emitted):.4f}; "
+        f"dropped_main {spread(tel['dropped_main'])}, dropped_mid "
+        f"{spread(tel['dropped_mid'])}, dropped_big {spread(tel['dropped_big'])}, "
+        f"overflow_spill {spread(tel['overflow_spill'])} gaussians")
+    if not (last < first and not any(dropped) and len(test_psnr) == 1
+            and math.isfinite(test_psnr[0])):
+        raise AssertionError(f"train_gs: loss {first} -> {last}, grad_dropped {dropped}, "
+                             f"test PSNR {test_psnr}")
+    ms = [1e3 * (t1 - t0) for (it, t0), (_, t1) in zip(steps, steps[1:])]
+    # not the first step (warm-up) nor the last (the evaluation renders)
+    step_ms = statistics.median(ms[1:-1])
+
+    # train_gs again at its default tiers, as a user runs it: held to the
+    # documented rule (ROADMAP C) that a step whose aligned demand passes
+    # the pair budget (2^20 until an adaptation iteration widens it) has
+    # its raster gradients zeroed, and to its launches and a finite loss
+    model_default = os.path.join(tmp, "model_default")
+    argv = ["--source_path", data, "--model_path", model_default, "--eval", "--iterations",
+            str(APPS_DEFAULT_ITERS), "--test_iterations", "-1", "--save_iterations",
+            str(APPS_DEFAULT_ITERS), "--rasterizer", "auto", "--log_every", "1", "--quiet"]
+    wall, launches_default, _, logged = train_app(argv)
+    expected = {"b1": 0, "b2": 0, "b5": APPS_DEFAULT_ITERS, "b3": 0,
+                "b3_store": APPS_DEFAULT_ITERS, "b4": APPS_DEFAULT_ITERS}
+    tel_default = binning(logged)
+    rule = [int(d > pt.DEFAULT_NC) for d in tel_default["nc_demand"]]
+    emitted = [r / t for r, t in zip(tel_default["real_pairs"], tel_default["total_area"])]
+    log(f"phase 9 train_gs.main({' '.join(argv)}) in {wall:.2f} s; launches "
+        f"{json.dumps(launches_default)}; per step: loss "
+        f"{[round(m['loss'], 6) for _, m in logged]}, nc_demand {tel_default['nc_demand']} "
+        f"against {pt.DEFAULT_NC}, grad_dropped {tel_default['grad_dropped']}; emitted "
+        f"pairs {tel_default['real_pairs']} of a tile coverage of "
+        f"{tel_default['total_area']} (share {min(emitted):.4f}-{max(emitted):.4f}); "
+        f"dropped_main {tel_default['dropped_main']}, dropped_mid "
+        f"{tel_default['dropped_mid']}, dropped_big {tel_default['dropped_big']}, "
+        f"overflow_spill {tel_default['overflow_spill']}")
+    if launches_default != expected:
+        raise AssertionError(f"train_gs (default tiers) launches {launches_default}, "
+                             f"expected {expected}")
+    if (tel_default["grad_dropped"] != rule or len(rule) != APPS_DEFAULT_ITERS
+            or not all(math.isfinite(m["loss"]) for _, m in logged)
+            or not os.path.exists(os.path.join(
+                model_default, f"point_cloud/iteration_{APPS_DEFAULT_ITERS}/point_cloud.ply"))):
+        raise AssertionError(f"train_gs (default tiers): grad_dropped "
+                             f"{tel_default['grad_dropped']}, expected {rule}; losses "
+                             f"{[m['loss'] for _, m in logged]}")
+    shutil.rmtree(model_default)
+
+    # render
+    render_times = []
+    render_eval = render_app.render_eval
+
+    def timed_render(*a, **k):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = render_eval(*a, **k)
+        torch.cuda.synchronize()
+        render_times.append(1e3 * (time.perf_counter() - t))
+        return out
+
+    render_app.render_eval = timed_render
+    try:
+        zero_launch_counts(ak, pt)
+        t0 = time.perf_counter()
+        render_app.main(["--model_path", model, "--quiet"])
+        torch.cuda.synchronize()
+        render_wall = time.perf_counter() - t0
+        launches_render = launch_counts(ak, pt)
+    finally:
+        render_app.render_eval = render_eval
+    expected = {"b1": 0, "b2": 0, "b5": n_images, "b3": n_images, "b3_store": 0, "b4": 0}
+    if launches_render != expected:
+        raise AssertionError(f"render launches {launches_render}, expected {expected}")
+    for split, n in (("train", POSE_TRAIN), ("test", POSE_TEST)):
+        for sub in ("renders", "gt"):
+            d = os.path.join(model, split, f"ours_{APPS_ITERS}", sub)
+            names = sorted(os.listdir(d))
+            shapes = {read_png(os.path.join(d, nm)).shape for nm in names}
+            if len(names) != n or shapes != {(IMAGE_HW, IMAGE_HW, 3)}:
+                raise AssertionError(f"{d}: {names}, {shapes}")
+    # the pair budget of those renders: render_eval passes no nc_pairs, so a
+    # frame whose aligned demand passes the default budget has its trailing
+    # tiles cut (the reference caveat); read it on the first test camera
+    trained = load_ply(os.path.join(model, "point_cloud", f"iteration_{APPS_ITERS}",
+                                    "point_cloud.ply"), device="cuda")
+    test_cam = camera_list_from_infos(
+        load_data(dotdict(read_cfg_args(model))).test_cameras)[0]
+    _, lay, _ = layout_of(trained, test_cam)
+    seg = lay.starts[1:] - lay.starts[:-1]
+    cut = int(((lay.counts_k < seg) & (seg > 0)).sum())
+    log(f"phase 9 render.main: {n_images} images in {render_wall:.2f} s, "
+        f"{statistics.median(render_times):.2f} ms per render_eval (median); launches "
+        f"{json.dumps(launches_render)}; the trained model's aligned pair demand on test "
+        f"camera 0 ({IMAGE_HW}x{IMAGE_HW}, default tiers) {int(lay.al_total)} against nc "
+        f"{lay.nc}: {cut} of {lay.n_tiles} tiles cut short or emptied")
+    del trained, lay
+
+    # metrics
+    npz = os.path.join(tmp, "lpips_vgg.npz")
+    lpips.save_params(npz, lpips.init_params(torch.Generator().manual_seed(SEED), "vgg",
+                                             device="cpu"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics_app.main(["--model_paths", model, "--lpips_weights", npz])
+    torch.cuda.synchronize()
+    metrics_ms = 1e3 * (time.perf_counter() - t0) / n_images
+    with open(os.path.join(model, "results.json")) as fh:
+        results = json.load(fh)
+    log(f"phase 9 metrics.main: {metrics_ms:.1f} ms per image (PNG reads, SSIM, PSNR, "
+        f"LPIPS VGG); {json.dumps(results)}")
+    if sorted(results) != [f"test/ours_{APPS_ITERS}", f"train/ours_{APPS_ITERS}"] or not all(
+            v is not None and math.isfinite(v) for r in results.values() for v in r.values()):
+        raise AssertionError(f"results.json {results}")
+    shutil.rmtree(tmp)
+
+    # tiled against pallas on the render cell's camera 0 at 1232x816
+    cam, bg = render["cams"][0], render["bg"]
+    with torch.no_grad():
+        want = render_fn(cam, scene, bg, rasterizer="pallas")["render"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = render_fn(cam, scene, bg, rasterizer="tiled")["render"]
+        torch.cuda.synchronize()
+        tiled_peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        tiled_ms = cuda_ms(lambda: render_fn(cam, scene, bg, rasterizer="tiled"), reps=5,
+                           warmup=1)
+        pallas_ms = cuda_ms(lambda: render_fn(cam, scene, bg, rasterizer="pallas"), reps=5,
+                            warmup=1)
+    tiled_err = image_gate(f"render() tiled vs pallas, camera 0 at {RENDER_W}x{RENDER_H}",
+                           got, want)
+    tr, start = gs_run["trainer"], gs_run["start_state"]
+    cam_arrays = tr._camera_arrays(gs_run["first_cam"])
+    lrs = gs.lr_dict(tr.opt, tr.spatial_lr_scale, GS_FIRST_IT)
+    step = {}
+    for name in ("pallas", "tiled"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        new, m = gs.train_step(start, cam_arrays, tr.bg, lrs, width=RENDER_W, height=RENDER_H,
+                               sh_degree=3, rasterizer=name, with_telemetry=False)
+        torch.cuda.synchronize()
+        step[name] = {"ms": 1e3 * (time.perf_counter() - t0), "loss": float(m["loss"]),
+                      "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30,
+                      "m": new.adam.m}
+    rel = abs(step["tiled"]["loss"] - step["pallas"]["loss"]) / step["pallas"]["loss"]
+    worst = 0.0
+    for k in PARAM_NAMES:
+        g, w = 10 * step["tiled"]["m"][k], 10 * step["pallas"]["m"][k]
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        worst = max(worst, err / scale)
+        if not (scale > 0 and err <= GS_GRAD_TOL * scale):
+            raise AssertionError(f"train step tiled vs pallas, {k}: {err} > {GS_GRAD_TOL} * "
+                                 f"{scale}")
+    if not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"train step tiled vs pallas: loss differs by {rel} relative")
+    timing = {"apps_step_ms": step_ms, "apps_step_ms_min": min(ms[1:-1]),
+              "train_gs_wall_s": train_wall,
+              "render_ms_per_image": statistics.median(render_times),
+              "render_wall_s": render_wall, "metrics_ms_per_image": metrics_ms,
+              "tiled_render_ms": tiled_ms, "pallas_render_ms": pallas_ms,
+              "tiled_render_peak_gib": tiled_peak,
+              **{f"{n}_step_{k}": v[k] for n, v in step.items() for k in ("ms", "peak_gib")}}
+    log(f"phase 9 tiled vs pallas at {RENDER_W}x{RENDER_H}: image max abs {tiled_err:.3e}; "
+        f"one train step's loss rel {rel:.2e}, gradients worst err / scale {worst:.2e} "
+        f"(limit {GS_GRAD_TOL}); {json.dumps(timing)}; {gpu_line()}")
+    log("phase 9 3DGS apps: ok")
+    return {"launches": launches, "launches_render": launches_render, "timing": timing,
+            "results": results, "tiled_err": tiled_err, "tiled_grad_err": worst,
+            "binning": {k: [min(v), max(v)] for k, v in tel.items()},
+            "default_tiers": tel_default}
 
 
 def host_ms(fn, calls: int = 200) -> float:
@@ -525,13 +920,13 @@ def variant_times(pt, b3_args, out, dout, tex) -> dict:
     return times
 
 
-def b1_inputs(n: int, gen):
+def b1_inputs(n: int, gen, p: int = P, d: int = D):
     dev = "cuda"
-    q = torch.randn(P, D, generator=gen, device=dev)
-    feats = torch.randn(n, D, generator=gen, device=dev)
-    wk = torch.randn(D, D, generator=gen, device=dev) * 0.05
-    bk = torch.randn(D, generator=gen, device=dev) * 0.1
-    pmask = (torch.rand(P, generator=gen, device=dev) > 0.3).float()
+    q = torch.randn(p, d, generator=gen, device=dev)
+    feats = torch.randn(n, d, generator=gen, device=dev)
+    wk = torch.randn(d, d, generator=gen, device=dev) * 0.05
+    bk = torch.randn(d, generator=gen, device=dev) * 0.1
+    pmask = (torch.rand(p, generator=gen, device=dev) > 0.3).float()
     valid = torch.ones(n, device=dev)
     valid[n - n // 8:] = 0.0  # padded tail of invalid rays
     return q, feats, wk, bk, pmask, valid
@@ -543,10 +938,10 @@ def b1_flops_k_path(n: int) -> int:
     return 2 * (n * D * D + P * n * D)
 
 
-def b1_flops_reassociated(n: int) -> int:
+def b1_flops_reassociated(n: int, p: int = P, d: int = D) -> int:
     """Flops the function needs, without K: q'' = q Wk^T, then the logits
-    (q'' feats^T + q bk) / sqrt(d)."""
-    return 2 * (P * n * D + P * D * D)
+    (q'' feats^T + q bk) / sqrt(d), at p patches of width d."""
+    return 2 * (p * n * d + p * d * d)
 
 
 def b1_executed_flops(n: int) -> int:
@@ -556,21 +951,23 @@ def b1_executed_flops(n: int) -> int:
     return 2 * 2 * P * n * D + 2 * P * D * (D + 1)
 
 
-def b1_bound(n: int, mode: str):
-    """(bound_ms, bound_by) of one B1 call, on B2's terms: the reassociated
-    flops at the bf16 tensor-core rate divided by the products the mode's
-    accuracy needs (PRODUCTS), against each input read once and each output
-    written once."""
+def b1_bound(n: int, mode: str, p: int = P, d: int = D):
+    """(bound_ms, bound_by) of one B1 call at p patches of width d, on B2's
+    terms: the reassociated flops at the bf16 tensor-core rate divided by
+    the products the mode's accuracy needs (PRODUCTS), against each input
+    read once and each output written once (the true shape's: the padding
+    and chunking are the kernel's, not the function's)."""
     rate = BF16_FLOPS_PER_S / PRODUCTS[mode]
-    nbytes = 4 * (P * D + n * D + D * D + D + P + n + n + 2 * P)
-    t_ops, t_bytes = b1_flops_reassociated(n) / rate, nbytes / HBM_BYTES_PER_S
+    nbytes = 4 * (p * d + n * d + d * d + d + p + n + n + 2 * p)
+    t_ops, t_bytes = b1_flops_reassociated(n, p, d) / rate, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def b1_case(ak, ins, mode, n):
     """B1 against its plain version at the gates' limits, its invalid tail
     scored exactly 0, and a second launch on the same inputs bitwise equal
-    to the first; returns the max abs error of the scores."""
+    to the first; returns the max abs error of the scores. Any (P, d) the
+    wrapper takes: at SuperPoint's the call is SP_CHUNKS launches."""
     out = ak.attention_scores_fwd(*ins, mode=mode)
     again = ak.attention_scores_fwd(*ins, mode=mode)
     rs, rm, rss = ak.attention_scores_plain(*ins, mode=mode)
@@ -582,7 +979,8 @@ def b1_case(ak, ins, mode, n):
     m_err = (m - rm).abs().max().item()
     s_rel = ((ss - rss).abs() / rss).max().item()
     same = all(torch.equal(a, b) for a, b in zip(out, again))
-    log(f"B1 n={n} mode={mode}: max_abs_err={err:.3e} (max|ref|={scale:.3e}, "
+    log(f"B1 n={n} P={ins[0].shape[0]} d={ins[0].shape[1]} mode={mode}: "
+        f"max_abs_err={err:.3e} (max|ref|={scale:.3e}, "
         f"rel={err / scale:.3e}) m_err={m_err:.3e} s_relerr={s_rel:.3e}; against plain "
         f"f32: rel={(s - fs).abs().max().item() / fs.abs().max().item():.3e} m_err="
         f"{(m - fm).abs().max().item():.3e} s_relerr={((ss - fss).abs() / fss).max().item():.3e}"
@@ -641,14 +1039,22 @@ def phase_kernels(ak, gen):
     ins = b1_inputs(5000, gen)
     for mode in ak.MODES:
         b1_case(ak, ins, mode, 5000)
+    # SuperPoint's shape: padded width, patches in chunks, the same gates
+    ins = b1_inputs(KERNEL_NS[0], gen, SP_P, SP_D)
+    for mode in ak.MODES:
+        before = ak.attention_scores_fused.launches
+        b1_case(ak, ins, mode, KERNEL_NS[0])
+        if ak.attention_scores_fused.launches - before != 2 * SP_CHUNKS:
+            raise AssertionError(f"B1 at P={SP_P}: {ak.attention_scores_fused.launches - before}"
+                                 f" launches for two calls, expected {2 * SP_CHUNKS}")
     return main_err
 
 
-def b2_flops(n: int) -> int:
+def b2_flops(n: int, p: int = P, d: int = D) -> int:
     """Flops the backward needs, reassociated so that K is never formed: the
     logits, dfeats = dlog^T q'' and A = dlog feats (3 P N d), q'' = q Wk^T,
-    dq = A Wk and dWk = A^T q (3 P d^2)."""
-    return 2 * (3 * P * n * D + 3 * P * D * D)
+    dq = A Wk and dWk = A^T q (3 P d^2), at p patches of width d."""
+    return 2 * (3 * p * n * d + 3 * p * d * d)
 
 
 def b2_executed_flops(n: int) -> int:
@@ -663,25 +1069,26 @@ def b2_flops_k_path(n: int) -> int:
     return 2 * (3 * n * D * D + 3 * P * n * D)
 
 
-def b2_bound(n: int, mode: str):
-    """(bound_ms, bound_by) of one B2 call: b2_flops at the bf16 tensor-core
-    rate divided by the products the mode's accuracy needs (PRODUCTS),
-    against inputs q, feats, Wk, bk, pmask, valid, m, s, g read once and dq,
-    dfeats, dWk, dbk written once."""
+def b2_bound(n: int, mode: str, p: int = P, d: int = D):
+    """(bound_ms, bound_by) of one B2 call at p patches of width d: b2_flops
+    at the bf16 tensor-core rate divided by the products the mode's accuracy
+    needs (PRODUCTS), against inputs q, feats, Wk, bk, pmask, valid, m, s, g
+    read once and dq, dfeats, dWk, dbk written once."""
     rate = BF16_FLOPS_PER_S / PRODUCTS[mode]
-    nbytes = 4 * (2 * P * D + 2 * n * D + 2 * D * D + 2 * D + 3 * P + 2 * n)
-    t_ops, t_bytes = b2_flops(n) / rate, nbytes / HBM_BYTES_PER_S
+    nbytes = 4 * (2 * p * d + 2 * n * d + 2 * d * d + 2 * d + 3 * p + 2 * n)
+    t_ops, t_bytes = b2_flops(n, p, d) / rate, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
 def dbk_scale(ins, m, s, g) -> float:
     """max_col sum_j |dk_j|, the size of the terms dbk sums."""
     q, feats, wk, bk, pmask, valid = ins
-    logits = q @ (feats @ wk + bk).T / math.sqrt(D)
+    d = q.shape[1]
+    logits = q @ (feats @ wk + bk).T / math.sqrt(d)
     logits = torch.where(valid[None] > 0, logits, torch.full_like(logits, -9e15))
     probs = torch.exp(logits - m) / s
     c = (probs * g).sum(1, keepdim=True)
-    dlog = pmask[:, None] * probs * (g - c) / math.sqrt(D)
+    dlog = pmask[:, None] * probs * (g - c) / math.sqrt(d)
     return (dlog.T @ q).abs().sum(0).max().item()
 
 
@@ -733,6 +1140,20 @@ def phase_b2(ak, gen):
         f"max|dfeats| {out[1].abs().max().item():.3e}")
     if not out[1].abs().max().item() > 0:
         raise AssertionError("B2 all-invalid: dfeats should be nonzero (unmasked dlog)")
+    # SuperPoint's shape: padded width, patches in chunks, the same gates
+    n = KERNEL_NS[0]
+    ins = b1_inputs(n, gen, SP_P, SP_D)
+    g = torch.randn(n, generator=gen, device="cuda")
+    for mode in ak.MODES:
+        before = ak.attention_scores_bwd.launches
+        err, out, msg = b2_case(ak, ins, g, mode)
+        log(f"B2 n={n} P={SP_P} d={SP_D} mode={mode}: max_abs_err={err:.3e} (err/scale: "
+            f"{msg})")
+        if ak.attention_scores_bwd.launches - before != 2 * SP_CHUNKS:
+            raise AssertionError(f"B2 at P={SP_P}: {ak.attention_scores_bwd.launches - before}"
+                                 f" launches for two calls, expected {2 * SP_CHUNKS}")
+        if [tuple(t.shape) for t in out] != [(SP_P, SP_D), (n, SP_D), (SP_D, SP_D), (SP_D,)]:
+            raise AssertionError(f"B2 at P={SP_P}: shapes {[tuple(t.shape) for t in out]}")
     return main_err
 
 
@@ -1708,6 +2129,23 @@ def main() -> int:
         times[f"n={nn} plain"] = cuda_ms(
             lambda: ak.attention_scores_plain(*big, mode="bf16_split3"), reps=10)
     log("B1 times ms: " + json.dumps(times))
+    sp_ins = b1_inputs(n, gen, SP_P, SP_D)
+    sp_b1 = {"ms": cuda_ms(lambda: ak.attention_scores_fused(*sp_ins)),
+             "plain_ms": cuda_ms(lambda: ak.attention_scores_plain(*sp_ins,
+                                                                   mode="bf16_split3")),
+             "bound_ms": b1_bound(n, "bf16_split3", SP_P, SP_D)[0],
+             **{f"{mode}_ms": cuda_ms(lambda: ak.attention_scores_fused(*sp_ins, mode=mode),
+                                      reps=10) for mode in ak.MODES}}
+    prof = profile_run(f"B1 call (P={SP_P}, d={SP_D}, n={n}, split3)",
+                       lambda: ak.attention_scores_fused(*sp_ins), sp_b1["ms"])
+    # device time of the call outside B1's own CUDA kernels: the wrapper's
+    # padding copies, fills and chunk sums
+    sp_b1["device_ms"], sp_b1["wrapper_device_ms"] = prof["b1_ms"], (
+        prof["busy_ms"] - prof["b1_ms"])
+    log(f"B1 at P={SP_P} d={SP_D} n={n} ({SP_CHUNKS} launches per call on the width padded "
+        f"to {D}; the bound counts the true shape's {b1_flops_reassociated(n, SP_P, SP_D) / 1e9:.2f}"
+        f" GFLOP, the launches execute {SP_CHUNKS * b1_executed_flops(n) / 1e9:.2f}): "
+        + json.dumps(sp_b1))
 
     g = torch.randn(n, generator=gen, device="cuda")
     _, m, s = ak.attention_scores_fwd(*ins)
@@ -1737,6 +2175,23 @@ def main() -> int:
         times[f"n={nn} plain"] = cuda_ms(
             lambda: ak.attention_scores_bwd_plain(*big, mm, ss, gg), reps=10)
     log("B2 times ms: " + json.dumps(times))
+    g = torch.randn(n, generator=gen, device="cuda")
+    _, sm, ss = ak.attention_scores_fwd(*sp_ins)
+    sp_b2 = {"ms": cuda_ms(lambda: ak.attention_scores_bwd(*sp_ins, sm, ss, g)),
+             "plain_ms": cuda_ms(lambda: ak.attention_scores_bwd_plain(*sp_ins, sm, ss, g)),
+             "bound_ms": b2_bound(n, "bf16_split3", SP_P, SP_D)[0]}
+    for mode in ak.MODES:
+        _, mm, ss2 = ak.attention_scores_fwd(*sp_ins, mode=mode)
+        sp_b2[f"{mode}_ms"] = cuda_ms(lambda: ak.attention_scores_bwd(*sp_ins, mm, ss2, g,
+                                                                      mode=mode), reps=10)
+    prof = profile_run(f"B2 call (P={SP_P}, d={SP_D}, n={n}, split3)",
+                       lambda: ak.attention_scores_bwd(*sp_ins, sm, ss, g), sp_b2["ms"])
+    sp_b2["device_ms"], sp_b2["wrapper_device_ms"] = prof["b2_ms"], (
+        prof["busy_ms"] - prof["b2_ms"])
+    log(f"B2 at P={SP_P} d={SP_D} n={n} ({SP_CHUNKS} launches per call; the bound counts "
+        f"{b2_flops(n, SP_P, SP_D) / 1e9:.2f} GFLOP, the launches execute "
+        f"{SP_CHUNKS * b2_executed_flops(n) / 1e9:.2f}): " + json.dumps(sp_b2))
+    del sp_ins
 
     per_image = {}
     for label, flag in (("fused", True), ("plain", False)):
@@ -1869,8 +2324,14 @@ def main() -> int:
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
         f"total {time.perf_counter() - t_start:.1f} s")
 
-    # 8. the pose driver at full width
-    driver = phase_pose_driver(ak, pt, scene)
+    # 8. the pose driver at full width, DINO and SuperPoint, on one dataset
+    data = write_dataset(scene, arrays)
+    driver = phase_pose_driver(ak, pt, scene, data)
+    sp_driver = phase_pose_driver(ak, pt, scene, data, backbone="superpoint")
+
+    # 9. the 3DGS apps at full width on the same dataset
+    apps = phase_gs_apps(ak, pt, scene, data, render, gs_run)
+    shutil.rmtree(os.path.dirname(data))
 
     records = [{
         "name": "B1 attention_scores_fused (_fwd_kernel_train; 4 CUDA kernels per launch, "
@@ -1881,12 +2342,19 @@ def main() -> int:
         # the pose driver's run; each other path's count beside it
         "launches": driver["launches"][0],
         "launches_by_path": {"serving": launches, "training": train_b1,
-                             "pose_driver": driver["launches"][0]},
+                             "pose_driver": driver["launches"][0],
+                             "pose_driver_superpoint": sp_driver["launches"][0]},
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        # P=784, d=256 (SuperPoint), split3, N=32768: SP_CHUNKS launches a call
+        "superpoint_ms": sp_b1["ms"],
+        "superpoint_device_ms": sp_b1["device_ms"],
+        "superpoint_wrapper_device_ms": sp_b1["wrapper_device_ms"],
+        "superpoint_plain_ms": sp_b1["plain_ms"],
+        "superpoint_bound_ms": sp_b1["bound_ms"],
         # no single PyTorch call computes the masked softmax column sums
         "library_ms": None,
     }, {
@@ -1897,12 +2365,18 @@ def main() -> int:
         "replaces": "sixdgs_tpu/ops/attention_kernel.py:136",
         "launches": driver["launches"][1],
         "launches_by_path": {"serving": 0, "training": train_b2,
-                             "pose_driver": driver["launches"][1]},
+                             "pose_driver": driver["launches"][1],
+                             "pose_driver_superpoint": sp_driver["launches"][1]},
         "max_abs_err": b2_max_abs_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
         "bound_ms": b2_bound_ms,
         "bound_by": b2_bound_by,
+        "superpoint_ms": sp_b2["ms"],
+        "superpoint_device_ms": sp_b2["device_ms"],
+        "superpoint_wrapper_device_ms": sp_b2["wrapper_device_ms"],
+        "superpoint_plain_ms": sp_b2["plain_ms"],
+        "superpoint_bound_ms": sp_b2["bound_ms"],
         # no single PyTorch call computes the softmax-column-sum VJP
         "library_ms": None,
     }, {
@@ -1915,7 +2389,9 @@ def main() -> int:
         "launches": gs_run["launches"]["b5"],
         "launches_by_path": {"render": render["launches"][0],
                              "gs_training": gs_run["launches"]["b5"],
-                             "pose_driver": driver["launches"][2]},
+                             "pose_driver": driver["launches"][2],
+                             "train_gs_app": apps["launches"]["b5"],
+                             "render_app": apps["launches_render"]["b5"]},
         "max_abs_err": render["b5_err"],
         "ms": b5_ms,
         "plain_ms": b5_plain_ms,
@@ -1935,7 +2411,10 @@ def main() -> int:
         "launches": gs_run["launches"]["b3_store"] + gs_run["launches"]["b3"],
         "launches_by_path": {"render": render["launches"][1],
                              "gs_training_store_t": gs_run["launches"]["b3_store"],
-                             "gs_training_eval": gs_run["launches"]["b3"]},
+                             "gs_training_eval": gs_run["launches"]["b3"],
+                             "train_gs_app_store_t": apps["launches"]["b3_store"],
+                             "train_gs_app_eval": apps["launches"]["b3"],
+                             "render_app": apps["launches_render"]["b3"]},
         "max_abs_err": render["b3_err"],
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,
@@ -1957,6 +2436,8 @@ def main() -> int:
         "source": "sixdgs_torch/csrc/composite_bwd.cu",
         "replaces": "sixdgs_tpu/ops/rasterizer/pallas_tiles.py:503",
         "launches": gs_run["launches"]["b4"],
+        "launches_by_path": {"gs_training": gs_run["launches"]["b4"],
+                             "train_gs_app": apps["launches"]["b4"]},
         "max_abs_err": render["b4_err"],
         "ms": b4_ms,
         "plain_ms": b4_plain_ms,
@@ -1978,6 +2459,10 @@ def main() -> int:
     log(f"render_eval per image: {render_ms:.3f} ms, {json.dumps(render_device)}; image vs "
         f"golden model max abs {render['render_err']:.3e}")
     log("pose driver: " + json.dumps(driver))
+    log("pose driver (superpoint): " + json.dumps(sp_driver))
+    log(f"B1 / B2 at P={SP_P} d={SP_D}: " + json.dumps({"b1": sp_b1, "b2": sp_b2}))
+    log("3DGS apps: " + json.dumps({**apps["timing"], "binning": apps["binning"]}))
+    log(f"whole script {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,14 +11,18 @@ Usage:
     python -m sixdgs_torch.apps.pose_eval --exp_path <dir> --out_path out.json
         [--data_type tankstemple|mip360|blender|cambridge_landmark|all]
         [--dino_weights dinov2_vits14.pth|.npz] [--platform cpu|cuda]
+        [--backbone dino|superpoint] [--superpoint_weights superpoint.npz]
         [--fused_attention]
 
 Runs on the card unless ``--platform cpu``. ``--fused_attention`` scores
 through the fused attention-score kernels (B1 forward, B2 backward) in
 training and evaluation; the default scores as the JAX driver does, with
 the plain attention. Random weights are drawn from torch generators seeded
-as the JAX driver seeds its keys (DINO 71170, the id module ``seed``, the
-evaluation rays ``seed + 1``); their numbers differ from jax.random's.
+as the JAX driver seeds its keys (DINO or SuperPoint 71170, the id module
+``seed``, the evaluation rays ``seed + 1``); their numbers differ from
+jax.random's. ``--backbone superpoint`` scores 28 x 28 patches of 256-dim
+descriptors with a 256-wide id module, from ``--superpoint_weights`` (the
+JAX package's flat npz, ``"<name>.w"`` and ``"<name>.b"``) or random.
 
 As in the JAX driver, a ``RuntimeError`` inside one scene is printed with
 its traceback and the scene is skipped; torch reports CUDA faults as
@@ -121,16 +125,15 @@ def pretrain_single_object(
     from sixdgs_torch.rays.engine import generate_rays_from_scene
     from sixdgs_torch.weights import id_module_from_numpy
 
-    if backbone != "dino":
-        raise NotImplementedError(f"backbone {backbone!r}: SuperPoint is ROADMAP A.3")
     print("data_path:", checkpoint_args.source_path)
     scene = load_ply(checkpoint_filepath, max_sh_degree=checkpoint_args.sh_degree,
                      device=device)
     scene_info = load_data(checkpoint_args)
 
     if id_params is None:
-        id_module = init_id_module(torch.Generator().manual_seed(seed), feature_dim=384,
-                                   grid=16, device=device)
+        feature_dim, grid = (256, 28) if backbone == "superpoint" else (384, 16)
+        id_module = init_id_module(torch.Generator().manual_seed(seed),
+                                   feature_dim=feature_dim, grid=grid, device=device)
     else:
         id_module = id_module_from_numpy(id_params, device=device)
     ckpt_path = os.path.join(exp_dir_filepath, "id_module.npz")
@@ -199,7 +202,9 @@ def main(argv=None):
                         "a torch .pth with the hub's); random init if absent")
     parser.add_argument("--backbone", type=str, default="dino",
                         choices=["dino", "superpoint"],
-                        help="image backbone; superpoint is not ported yet (ROADMAP A.3)")
+                        help="image backbone (backbone_type in the reference "
+                        "IdentificationModule; superpoint = 28x28 grid, 256-dim "
+                        "descriptors)")
     parser.add_argument("--superpoint_weights", type=str, default=None,
                         help="converted superpoint_v1 weights (.npz); with --backbone "
                         "superpoint")
@@ -211,15 +216,22 @@ def main(argv=None):
                         help="score through the fused attention-score kernels "
                         "(B1 forward, B2 backward)")
     args = parser.parse_args(argv)
-    if args.backbone == "superpoint":
-        raise NotImplementedError("--backbone superpoint: SuperPoint is ROADMAP A.3")
-
-    from sixdgs_torch.pose import dino
 
     device = args.platform
-    dino_model = dino.load_params(args.dino_weights,
-                                  generator=torch.Generator().manual_seed(DINO_SEED),
-                                  device=device)
+    if args.backbone == "superpoint":
+        from sixdgs_torch.pose import superpoint
+
+        if args.superpoint_weights:
+            dino_model = superpoint.load_params(args.superpoint_weights, device=device)
+        else:
+            dino_model = superpoint.init_params(torch.Generator().manual_seed(DINO_SEED),
+                                                device=device)
+    else:
+        from sixdgs_torch.pose import dino
+
+        dino_model = dino.load_params(args.dino_weights,
+                                      generator=torch.Generator().manual_seed(DINO_SEED),
+                                      device=device)
     cfg = PoseEstimationConfig(
         n_iterations=args.n_iterations,
         ray_budget=args.ray_budget,

@@ -4,11 +4,13 @@
 // (launched by _fused_fwd_call_train). For q [P, D], ray features [N, D],
 // Wk [D, D] (in, out), bk [D], pmask [P] and valid [N] it computes
 //
-//     logits   = q K^T / sqrt(D) with K = feats Wk + bk, invalid rays -> NEG
+//     logits   = q K^T / sqrt_d with K = feats Wk + bk, invalid rays -> NEG
 //     m_p, s_p = max_j logits_pj, sum_j exp(logits_pj - m_p)
 //     score_j  = sum_p pmask_p exp(logits_pj - m_p) / s_p
 //
-// reassociated so that K is never formed: q K^T = q'' feats^T + qb with
+// (sqrt_d the caller's argument, sqrt of the true width d: the wrapper
+// zero-pads a narrower width to D and splits more patches into launches
+// of P, ops/attention_kernel.py), reassociated so that K is never formed: q K^T = q'' feats^T + qb with
 // q'' = q Wk^T and qb = q bk. The logits tile is the one B2 (the backward,
 // attention_scores_bwd.cu) forms, from the same code (attention_tiles.cuh),
 // and neither the [P, N] logits nor anything [N, D]-sized is written to

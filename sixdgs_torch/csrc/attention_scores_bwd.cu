@@ -8,16 +8,18 @@
 // that K = feats Wk + bk is never formed:
 //
 //     q''      = q Wk^T [P, D],  qb = q bk [P]                  (prologue)
-//     logits   = (q'' feats^T + qb) / sqrt(D) (invalid -> NEG)
+//     logits   = (q'' feats^T + qb) / sqrt_d (invalid -> NEG)
 //     P_pj     = exp(logits_pj - m_p) / s_p
 //     c_p      = sum_j P_pj g_j                                 (c pass)
-//     dlog_pj  = pmask_p P_pj (g_j - c_p) / sqrt(D)
+//     dlog_pj  = pmask_p P_pj (g_j - c_p) / sqrt_d
 //     dfeats   = dlog^T q''     (= dk Wk^T with dk = dlog^T q)  (gradient pass)
 //     A        = dlog feats,  r = rowsum(dlog)                  (gradient pass)
 //     dq = A Wk + r bk^T,  dWk = A^T q,  dbk = q^T r            (epilogue)
 //
 // without ever writing a [P, N] logits, probability or dlog array to device
-// memory. As in the TPU kernel, dlog is not masked by ray validity: with
+// memory. sqrt_d is the caller's argument, sqrt of the true width d: the
+// wrapper zero-pads a narrower width to D and splits more patches into
+// launches of P (ops/attention_kernel.py). As in the TPU kernel, dlog is not masked by ray validity: with
 // every ray invalid (m_p = NEG) each P_pj is 1/N and invalid rays get a
 // nonzero dfeats. The ray stream carries three P N D products (the logits,
 // dfeats and A; the logits twice), no N D^2 product.

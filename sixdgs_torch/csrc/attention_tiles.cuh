@@ -3,7 +3,10 @@
 // the logits reassociated, without K = feats Wk + bk:
 //
 //     q''    = q Wk^T [P, D],  qb = q bk [P]       (gemm_tile, one launch)
-//     logits = (q'' feats^T + qb) / sqrt(D), invalid rays -> NEG
+//     logits = (q'' feats^T + qb) / sqrt_d, invalid rays -> NEG
+//
+// with sqrt_d the launch's argument (sqrt of the true width, which the
+// wrapper may have zero-padded to D), never a constant of D
 //
 // from the same code: q'' and qb by the same f32 FMA order, q'' split into
 // the same bf16 pieces in mma fragment order (pack_q), the same feats

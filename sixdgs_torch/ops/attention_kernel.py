@@ -50,6 +50,16 @@ PyTorch version (``attention_scores_plain``, ``attention_scores_bwd_plain``,
 both on the logits of ``_plain_logits``). A CUDA tensor never falls back to
 the plain version.
 
+Shapes: the kernels are compiled for P = 256 patches (the 16 x 16 DINOv2
+grid) and d = 384. The wrappers take any P and any d <= 384 (SuperPoint:
+P = 28 x 28 = 784, d = 256, as the TPU kernel takes any shape): the width
+is zero-padded to 384 and the patches split into chunks of 256, the last
+padded with zero rows and pmask 0, one launch per chunk with the true
+sqrt(d) (``chunked_fwd``, ``chunked_bwd``). Scores and every gradient are
+sums over patches, so the chunks' sums add up exactly by linearity; the
+DINO shape is one launch of the inputs themselves. Each counter counts
+launches, so a SuperPoint call counts 4.
+
 Precision ``mode``: both kernels run their P N d products on the tensor
 cores (mma.sync over bf16 pieces, ``csrc/mma_pieces.cuh``) with f32
 accumulation: "bf16" one bf16 piece per operand (q'', feats and, in the
@@ -69,13 +79,14 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from sixdgs_torch.ops import _build
 
 NEG = -9e15
 MODES = ("f32", "bf16", "bf16_split3")
-N_PATCHES = 256  # the kernel's patch count (16 x 16 DINOv2 grid)
-KERNEL_WIDTH = 384  # DINOv2-S
+N_PATCHES = 256  # the kernels' compiled patch count (16 x 16 DINOv2 grid)
+KERNEL_WIDTH = 384  # their compiled width (DINOv2-S); narrower widths are padded
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -98,27 +109,30 @@ def _dot(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
     return a @ b
 
 
-def _plain_logits(q, ray_feats, wk, bk, valid, mode):
+def _plain_logits(q, ray_feats, wk, bk, valid, mode, sqrt_d=None):
     """(q'', logits) of both plain versions, in the kernels' reassociated
     order: q'' = q Wk^T [P, d] and the masked logits (q'' feats^T + q bk) /
     sqrt(d), invalid rays NEG. K is never formed. The product on the ray
     stream goes through ``_dot`` (q'' and feats rounded or split as the
-    kernels take them); q'' and q bk are plain f32."""
+    kernels take them); q'' and q bk are plain f32. ``sqrt_d`` defaults to
+    sqrt of q's width; a caller that zero-pads the width passes the true
+    one, as the kernels take it."""
     qpp = q @ wk.T
-    logits = (_dot(qpp, ray_feats.T, mode) + (q @ bk)[:, None]) / math.sqrt(q.shape[-1])
+    sqrt_d = math.sqrt(q.shape[-1]) if sqrt_d is None else sqrt_d
+    logits = (_dot(qpp, ray_feats.T, mode) + (q @ bk)[:, None]) / sqrt_d
     logits = torch.where(valid[None, :] > 0.0, logits,
                          torch.full_like(logits, NEG))
     return qpp, logits
 
 
 def attention_scores_plain(q, ray_feats, wk, bk, pmask, valid,
-                           mode: str = "bf16_split3"
+                           mode: str = "bf16_split3", sqrt_d=None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward kernel's function in plain PyTorch: (scores [N], m [P, 1],
     s [P, 1]) with m, s the per-patch max and sum-exp residuals, from the
     logits of ``_plain_logits``. ``pmask`` [P] and ``valid`` [N] are
-    float32."""
-    _, logits = _plain_logits(q, ray_feats, wk, bk, valid, mode)
+    float32; ``sqrt_d`` as in ``_plain_logits``."""
+    _, logits = _plain_logits(q, ray_feats, wk, bk, valid, mode, sqrt_d)
     m = logits.amax(dim=1, keepdim=True)
     e = torch.exp(logits - m)
     s = e.sum(dim=1, keepdim=True)
@@ -127,7 +141,7 @@ def attention_scores_plain(q, ray_feats, wk, bk, pmask, valid,
 
 
 def attention_scores_bwd_plain(q, ray_feats, wk, bk, pmask, valid, m, s, g,
-                               mode: str = "bf16_split3"):
+                               mode: str = "bf16_split3", sqrt_d=None):
     """The backward kernel's function in plain PyTorch, in the kernel's
     reassociated order: (dq [P, d], dfeats [N, d], dwk [d, d], dbk [d]) for
     the score cotangent ``g`` [N], with m, s the forward's [P, 1] (or [P])
@@ -137,10 +151,11 @@ def attention_scores_bwd_plain(q, ray_feats, wk, bk, pmask, valid, m, s, g,
     stream go through ``_dot`` (q'', feats and dlog rounded or split as
     the kernel takes them); the small ones are plain f32. Like the TPU kernel
     (and unlike autodiff of the masked formula), dlog is not masked by
-    ``valid``."""
+    ``valid``. ``sqrt_d`` as in ``_plain_logits``."""
     P, d = q.shape
-    inv_sqrt_d = 1.0 / math.sqrt(d)
-    qpp, logits = _plain_logits(q, ray_feats, wk, bk, valid, mode)
+    sqrt_d = math.sqrt(d) if sqrt_d is None else sqrt_d
+    inv_sqrt_d = 1.0 / sqrt_d
+    qpp, logits = _plain_logits(q, ray_feats, wk, bk, valid, mode, sqrt_d)
     probs = torch.exp(logits - m.reshape(P, 1)) / s.reshape(P, 1)
     c = torch.sum(probs * g[None, :], dim=1, keepdim=True)
     dlog = pmask[:, None] * probs * (g[None, :] - c) * inv_sqrt_d
@@ -155,9 +170,8 @@ def attention_scores_bwd_plain(q, ray_feats, wk, bk, pmask, valid, m, s, g,
 
 def _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid):
     P, d = q.shape
-    if P != N_PATCHES or d != KERNEL_WIDTH:
-        raise ValueError(f"kernel takes P={N_PATCHES} and d={KERNEL_WIDTH}, "
-                         f"got P={P}, d={d}")
+    if d > KERNEL_WIDTH:
+        raise ValueError(f"the kernels take d <= {KERNEL_WIDTH}, got d={d}")
     for name, t in (("q", q), ("ray_feats", ray_feats), ("wk", wk),
                     ("bk", bk), ("pmask", pmask), ("valid", valid)):
         if t.device != q.device:
@@ -166,6 +180,67 @@ def _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid):
         raise ValueError(f"shapes q {tuple(q.shape)}, ray_feats "
                          f"{tuple(ray_feats.shape)}, wk {tuple(wk.shape)}, "
                          f"bk {tuple(bk.shape)} do not agree")
+
+
+def _patch_chunks(q, ray_feats, wk, bk, pmask):
+    """The inputs at the kernels' compiled shape: q and pmask split into
+    chunks of N_PATCHES patches (the last padded with zero rows and
+    pmask 0), and the width zero-padded to KERNEL_WIDTH (zero columns of q
+    and feats, Wk zero outside its [d, d] block, zeros in bk). Returns
+    (q chunks, pmask chunks, feats, wk, bk); the DINO shape comes back as
+    one chunk of the inputs themselves."""
+    P, d = q.shape
+    if P == N_PATCHES and d == KERNEL_WIDTH:
+        return (q,), (pmask,), ray_feats, wk, bk
+    pad_p, pad_d = -P % N_PATCHES, KERNEL_WIDTH - d
+    q = F.pad(q, (0, pad_d, 0, pad_p))
+    pmask = F.pad(pmask, (0, pad_p))
+    ray_feats = F.pad(ray_feats, (0, pad_d))
+    wk = F.pad(wk, (0, pad_d, 0, pad_d))
+    bk = F.pad(bk, (0, pad_d))
+    return q.split(N_PATCHES), pmask.split(N_PATCHES), ray_feats, wk, bk
+
+
+def chunked_fwd(q, ray_feats, wk, bk, pmask, valid, mode, run):
+    """The forward's function at any P and any d <= KERNEL_WIDTH through
+    ``run(q, feats, wk, bk, pmask, valid, mode, sqrt_d)``, which takes
+    exactly N_PATCHES patches of width KERNEL_WIDTH (the kernel's shape):
+    one call per chunk of patches, on zero-padded widths, with the true
+    sqrt(d). Exact by linearity: the scores are a sum over patches, to
+    which a padded patch (pmask 0) adds 0, and zero columns add exact zeros
+    to the logits. The chunks' scores are summed in chunk order; their m
+    and s concatenate."""
+    P, d = q.shape
+    qs, pms, feats, wk, bk = _patch_chunks(q, ray_feats, wk, bk, pmask)
+    scores, ms, ss = None, [], []
+    for qc, pc in zip(qs, pms):
+        sc, m, s = run(qc, feats, wk, bk, pc, valid, mode, math.sqrt(d))
+        scores = sc if scores is None else scores + sc
+        ms.append(m)
+        ss.append(s)
+    return scores, torch.cat(ms)[:P], torch.cat(ss)[:P]
+
+
+def chunked_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode, run):
+    """The backward's function at any P and any d <= KERNEL_WIDTH through
+    ``run(q, feats, wk, bk, pmask, valid, m, s, g, mode, sqrt_d)`` at the
+    kernel's shape, chunked and padded as ``chunked_fwd``: dq concatenates
+    over the chunks; dfeats, dWk and dbk, sums over patches, add up in chunk
+    order (a padded patch has dlog = 0); the padding is sliced off."""
+    P, d = q.shape
+    qs, pms, feats, wk, bk = _patch_chunks(q, ray_feats, wk, bk, pmask)
+    pad = len(qs) * N_PATCHES - P
+    m = F.pad(m.reshape(P), (0, pad), value=1.0).split(N_PATCHES)
+    s = F.pad(s.reshape(P), (0, pad), value=1.0).split(N_PATCHES)
+    dqs, dfeats, dwk, dbk = [], None, None, None
+    for qc, pc, mc, sc in zip(qs, pms, m, s):
+        dq, df, dw, db = run(qc, feats, wk, bk, pc, valid, mc, sc, g, mode, math.sqrt(d))
+        dqs.append(dq)
+        if dfeats is None:
+            dfeats, dwk, dbk = df, dw, db
+        else:
+            dfeats, dwk, dbk = dfeats + df, dwk + dw, dbk + db
+    return (torch.cat(dqs)[:P, :d], dfeats[:, :d], dwk[:d, :d], dbk[:d])
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -198,8 +273,8 @@ def _library(name: str) -> ctypes.CDLL:
     return _build.bound_library(name, _SIGNATURES[name])
 
 
-def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
-    _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid)
+def _launch_fwd(q, ray_feats, wk, bk, pmask, valid, mode, sqrt_d):
+    """One B1 launch at the kernel's shape (P = N_PATCHES, d = KERNEL_WIDTH)."""
     lib = _library("attention_scores")
     P, d = q.shape
     N = ray_feats.shape[0]
@@ -208,13 +283,13 @@ def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
     ins = [_aligned(t) for t in (q, ray_feats, wk.T, bk, pmask, valid)]
     scores, m, s = new(N), new(P, 1), new(P, 1)
     _build.launch(lib.b1_attention_scores_fwd, *ins, scores, m, s,
-                  new(lib.b1_scratch_floats(N)), N, d, P, _MODE_ARG[mode], math.sqrt(d))
+                  new(lib.b1_scratch_floats(N)), N, d, P, _MODE_ARG[mode], sqrt_d)
     attention_scores_fused.launches += 1
     return scores, m, s
 
 
-def _kernel_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode):
-    _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid)
+def _launch_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode, sqrt_d):
+    """One B2 launch at the kernel's shape."""
     lib = _library("attention_scores_bwd")
     P, d = q.shape
     N = ray_feats.shape[0]
@@ -223,9 +298,19 @@ def _kernel_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode):
                                  m.reshape(P), s.reshape(P), g.reshape(N))]
     dfeats, dq, dwk, dbk = new(N, d), new(P, d), new(d, d), new(d)
     _build.launch(lib.b2_attention_scores_bwd, *ins, dfeats, dq, dwk, dbk,
-                  new(lib.b2_scratch_floats(N)), N, d, P, _MODE_ARG[mode], math.sqrt(d))
+                  new(lib.b2_scratch_floats(N)), N, d, P, _MODE_ARG[mode], sqrt_d)
     attention_scores_bwd.launches += 1
     return dq, dfeats, dwk, dbk
+
+
+def _kernel_fwd(q, ray_feats, wk, bk, pmask, valid, mode):
+    _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid)
+    return chunked_fwd(q, ray_feats, wk, bk, pmask, valid, mode, _launch_fwd)
+
+
+def _kernel_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode):
+    _check_kernel_inputs(q, ray_feats, wk, bk, pmask, valid)
+    return chunked_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode, _launch_bwd)
 
 
 def _masks(q, ray_feats, patch_mask, ray_valid):

@@ -4,9 +4,11 @@
     (means2D, conic, radii, depth, SH color).
   * compositing.py — exact depth-sorted front-to-back compositing over the
     whole image (the golden model).
-  * tiles.py / pallas_tiles.py — tile binning and the tile rasterizer on
-    the hand-written CUDA kernels B5 (aligned-layout gather), B3 (tile
-    compositor) and B4 (its backward).
+  * tiles.py — tile binning, and ``rasterize_tiled``: the tile rasterizer
+    in plain PyTorch ("tiled").
+  * pallas_tiles.py — the tile rasterizer on the hand-written CUDA kernels
+    B5 (aligned-layout gather), B3 (tile compositor) and B4 (its backward)
+    ("pallas").
 """
 
 from sixdgs_torch.ops.rasterizer.compositing import rasterize_scan
@@ -16,7 +18,8 @@ from sixdgs_torch.ops.rasterizer.projection import ProjectedGaussians, project_g
 def resolve_rasterizer(name: str = "auto") -> str:
     """'auto' -> "pallas": the tile rasterizer, whose wrappers launch the CUDA
     kernels on CUDA tensors and run their plain versions on CPU tensors.
-    (The JAX package resolves 'auto' to its XLA tiled path off the TPU.)"""
+    (The JAX package resolves 'auto' to its XLA tiled path off the TPU; the
+    port's "tiled" is that path in plain PyTorch.)"""
     return "pallas" if name == "auto" else name
 
 

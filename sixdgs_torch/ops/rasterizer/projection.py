@@ -182,13 +182,18 @@ def project_gaussians(
 
 def project_scene(scene, camera, scaling_modifier: float = 1.0,
                   override_color: Optional[torch.Tensor] = None,
-                  sh_degree: Optional[int] = None) -> ProjectedGaussians:
+                  sh_degree: Optional[int] = None,
+                  means2d_offset: Optional[torch.Tensor] = None) -> ProjectedGaussians:
     """Project a GaussianScene through a Camera (numpy matrices, moved to
-    the scene's device)."""
+    the scene's device).
+
+    ``means2d_offset`` [C, 2] is added to the projected means: a zero one is
+    the gradient receptacle of the reference's screenspace_points trick, so
+    its gradient is the screen-space position gradient."""
     dev = scene.xyz.device
     deg = scene.max_sh_degree if sh_degree is None else sh_degree
     cov3d = covariance_planes(scene.get_scaling, scene.rotation, scaling_modifier)
-    return project_gaussians(
+    proj = project_gaussians(
         scene.xyz,
         cov3d,
         scene.get_opacity,
@@ -204,3 +209,6 @@ def project_scene(scene, camera, scaling_modifier: float = 1.0,
         colors_precomp=override_color,
         active=scene.active,
     )
+    if means2d_offset is not None:
+        proj = proj._replace(means2d=proj.means2d + means2d_offset)
+    return proj

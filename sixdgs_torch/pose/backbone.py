@@ -7,7 +7,8 @@ pose_estimation/backbone.py:34-139):
   * mask: resize 256 (bilinear) -> crop 224 -> resize to the 16x16 patch grid
     -> threshold 0.1,
   * 14-dim 2D positional encoding: raw xy + sin/cos at 3 octaves,
-  * features: DINOv2 x_norm_patchtokens on the 16x16 grid.
+  * features: DINOv2 x_norm_patchtokens on the 16x16 grid (384-dim), or
+    SuperPoint's L2-normalised descriptors on the 28x28 grid (256-dim).
 
 Both resizes use ``F.interpolate(..., antialias=True, align_corners=False)``,
 which matches jax.image.resize with antialias; torch's default
@@ -29,6 +30,7 @@ IMAGENET_STD = (0.229, 0.224, 0.225)
 RESIZE = 256
 CROP = 224
 PATCH_GRID = 16  # 224 / 14 (DINOv2)
+PATCH_GRID_SP = 28  # 224 / 8 (SuperPoint stride-8 descriptors)
 NUM_PATCHES = PATCH_GRID * PATCH_GRID
 PE_DIM = 14
 FEATURE_DIM = 384
@@ -99,19 +101,22 @@ def backbone_features(
     """Full backbone forward.
 
     Args:
-        dino_model: pose.dino.DinoViT.
+        dino_model: the backbone module (pose.dino.DinoViT or
+            pose.superpoint.SuperPoint; the reference selects with
+            backbone_type, and both share the resize-256/crop-224/ImageNet
+            preprocessing).
         img: [H, W, 3] float image in [0, 1].
         mask: [H, W] foreground mask.
-        backbone: "dino" (16x16 grid); the SuperPoint backbone is not
-            ported yet.
+        backbone: "dino" (16x16 grid, 384-dim) or "superpoint" (28x28
+            grid, 256-dim L2-normalised descriptors).
 
     Returns:
         (features_with_pe [G*G, D+14], patch_mask [G*G] bool,
          feature_map [D, G, G]).
     """
-    if backbone != "dino":
-        raise NotImplementedError(f"backbone {backbone!r} is not ported; use 'dino'")
-    grid = PATCH_GRID
+    if backbone not in ("dino", "superpoint"):
+        raise ValueError(f"backbone must be 'dino' or 'superpoint', got {backbone!r}")
+    grid = PATCH_GRID_SP if backbone == "superpoint" else PATCH_GRID
     feats = dino_model.forward_features(preprocess_image(img))["x_norm_patchtokens"]
     patch_mask = preprocess_mask(mask, grid).reshape(-1)
     pe = image_position_encoding(grid, device=feats.device).to(feats.dtype)

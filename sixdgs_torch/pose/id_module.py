@@ -35,7 +35,7 @@ def score_image(dino_model, id_module: IdModule, img, mask, rays: Rays,
     """Score every ray against one image.
 
     Args:
-        dino_model: frozen backbone (pose.dino.DinoViT).
+        dino_model: frozen backbone (pose.dino.DinoViT or pose.superpoint.SuperPoint).
         id_module: pose.modules.IdModule (ray_mlp, attention, cam_up).
         img: [H, W, 3] float in [0, 1].
         mask: [H, W] foreground mask.
@@ -44,7 +44,7 @@ def score_image(dino_model, id_module: IdModule, img, mask, rays: Rays,
             [256 x N_rays] attention matrix is never materialized, in the
             forward (B1) or the backward (B2), so it also serves
             large-ray-count training.
-        backbone: "dino".
+        backbone: "dino" or "superpoint" (backbone_type in the reference).
     """
     feats_pe, patch_mask, fmap = backbone_features(dino_model, img, mask,
                                                    backbone=backbone)

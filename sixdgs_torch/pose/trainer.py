@@ -297,7 +297,7 @@ class PoseTrainer:
     """Host orchestration of id-module training.
 
     Args:
-        dino_model: frozen backbone (pose.dino.DinoViT).
+        dino_model: frozen backbone (pose.dino.DinoViT or pose.superpoint.SuperPoint).
         id_module: pose.modules.IdModule; the trainer trains a deep copy.
         scene: GaussianScene the rays are cast from.
         train_cam_infos: CameraInfo list.

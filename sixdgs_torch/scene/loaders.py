@@ -40,12 +40,14 @@ def _pillow():
     return Image
 
 
-def _open_image(path: str):
+def open_image(path: str):
+    """An image file through Pillow, or through ``scene.png`` without it."""
     image_mod = _pillow()
     return image_mod.open(path) if image_mod is not None else PngImage.open(path)
 
 
-def _fromarray(arr: np.ndarray, mode: str):
+def fromarray(arr: np.ndarray, mode: str):
+    """A uint8 array as a Pillow image, or a ``PngImage`` without Pillow."""
     image_mod = _pillow()
     return image_mod.fromarray(arr, mode) if image_mod is not None else PngImage(arr, mode)
 
@@ -61,7 +63,7 @@ def _composite_rgba(image, white_background: bool):
     bg = np.array([1, 1, 1]) if white_background else np.array([0, 0, 0])
     norm = im_data / 255.0
     arr = norm[:, :, :3] * norm[:, :, 3:4] + bg * (1 - norm[:, :, 3:4])
-    return _fromarray(np.array(arr * 255.0, dtype=np.uint8), "RGB")
+    return fromarray(np.array(arr * 255.0, dtype=np.uint8), "RGB")
 
 
 # ----------------------------------------------------------------- COLMAP
@@ -89,7 +91,7 @@ def read_colmap_cameras(cam_extrinsics, cam_intrinsics, images_folder: str,
                 "SIMPLE_PINHOLE undistorted datasets supported)"
             )
         image_path = os.path.join(images_folder, os.path.basename(extr.name))
-        image = _open_image(image_path).convert("RGB") if load_images else None
+        image = open_image(image_path).convert("RGB") if load_images else None
         cam_infos.append(
             CameraInfo(
                 uid=intr.id,
@@ -163,7 +165,7 @@ def read_cameras_from_transforms(path: str, transformsfile: str,
         w2c = np.linalg.inv(c2w)
         R = np.transpose(w2c[:3, :3])
         T = w2c[:3, 3]
-        image = _composite_rgba(_open_image(image_path), white_background)
+        image = _composite_rgba(open_image(image_path), white_background)
         fovy = focal2fov(fov2focal(fovx, image.size[0]), image.size[1])
         cam_infos.append(
             CameraInfo(
@@ -224,7 +226,7 @@ def read_tt_cameras(path: str, split: str, pose_files, img_files, intrinsics,
         R = np.transpose(w2c[:3, :3])
         T = w2c[:3, 3]
         image_path = os.path.join(path, "rgb", img_fname)
-        image = _composite_rgba(_open_image(image_path), white_background)
+        image = _composite_rgba(open_image(image_path), white_background)
         w, h = image.size
         cam_infos.append(
             CameraInfo(

@@ -3,8 +3,9 @@
 The dataset loaders decode images through Pillow where it is importable
 (as the JAX package does) and through this module where it is not: the
 card's machine has no Pillow. ``PngImage`` offers the few image methods
-the loaders and ``scene/cameras.py`` call (``size``, ``mode``,
-``convert``, ``resize`` to the same size, and the numpy array view).
+the loaders, ``scene/cameras.py`` and the apps call (``size``, ``mode``,
+``convert``, ``resize`` to the same size, ``save``, and the numpy array
+view).
 
 Colour types: gray (0), RGB (2) and RGBA (6), bit depth 8. The reader
 takes all five row filters; the writer writes filter 0 (none). Palette,
@@ -156,6 +157,9 @@ class PngImage:
         if tuple(size) != self.size:
             raise NotImplementedError(f"resizing {self.size} to {tuple(size)} needs Pillow")
         return self
+
+    def save(self, path: str) -> None:
+        write_png(path, self._pixels)
 
     def __array__(self, dtype=None, copy=None):
         return self._pixels if dtype is None else self._pixels.astype(dtype)

@@ -27,7 +27,7 @@ import torch
 from sixdgs_torch.ops.rasterizer import rasterize_scan, resolve_rasterizer
 from sixdgs_torch.ops.rasterizer.pallas_tiles import DEFAULT_NC, KB, rasterize_pallas
 from sixdgs_torch.ops.rasterizer.projection import project_gaussians
-from sixdgs_torch.ops.rasterizer.tiles import binning_saturation
+from sixdgs_torch.ops.rasterizer.tiles import binning_saturation, rasterize_tiled
 from sixdgs_torch.ops.ssim import dssim_l1_loss, l1_loss, psnr
 from sixdgs_torch.ops.transforms import covariance_planes, inverse_sigmoid
 from sixdgs_torch.scene.gaussians import (
@@ -173,13 +173,15 @@ def _render_params(params, active, cam: CameraArrays, width, height, sh_degree,
     telemetry as a third item (None off the "pallas" path).
 
     ``rasterizer``: "pallas" (the tile rasterizer on the CUDA kernels;
-    "auto" resolves to it) or "scan" (the golden model). ``means2d_offset``
+    "auto" resolves to it), "tiled" (the tile rasterizer in plain PyTorch)
+    or "scan" (the golden model). ``means2d_offset``
     [P, 2] is added to the projected means: the gradient with respect to a
     zero offset is the screen-space position gradient that densification
     accumulates."""
     rasterizer = resolve_rasterizer(rasterizer)
-    if rasterizer not in ("pallas", "scan"):
-        raise ValueError(f"rasterizer must be 'auto', 'pallas' or 'scan', got {rasterizer!r}")
+    if rasterizer not in ("pallas", "tiled", "scan"):
+        raise ValueError("rasterizer must be 'auto', 'pallas', 'tiled' or 'scan', got "
+                         f"{rasterizer!r}")
     t_max, mid_k, t_max_mid, overflow_k, t_max_big = tiers
     proj = _project_params(params, active, cam, width, height, sh_degree)
     if means2d_offset is not None:
@@ -192,6 +194,10 @@ def _render_params(params, active, cam: CameraArrays, width, height, sh_degree,
                                return_stats=with_stats)
         if with_stats:
             img, stats = img
+    elif rasterizer == "tiled":
+        img = rasterize_tiled(proj, width, height, bg, t_max=t_max, mid_k=mid_k,
+                              t_max_mid=t_max_mid, overflow_k=overflow_k,
+                              t_max_big=t_max_big)
     else:
         img = rasterize_scan(proj, width, height, bg, chunk=chunk)
     if with_stats:
@@ -222,9 +228,10 @@ def train_step(
     active = scene.active
     params = {k: v.detach().requires_grad_(True) for k, v in scene.params().items()}
     offset = torch.zeros(scene.capacity, 2, device=active.device, requires_grad=True)
-    on_tiles = resolve_rasterizer(rasterizer) == "pallas"
-    # the rasterizer computes its nc-budget telemetry anyway
-    want_stats = with_telemetry and on_tiles
+    rasterizer = resolve_rasterizer(rasterizer)
+    on_tiles = rasterizer in ("tiled", "pallas")
+    # the kernel path computes its nc-budget telemetry anyway
+    want_stats = with_telemetry and rasterizer == "pallas"
 
     out = _render_params(params, active, cam, width, height, sh_degree, bg, chunk,
                          rasterizer, tiers, nc_pairs, with_stats=want_stats,

@@ -4,8 +4,8 @@ The JAX package keeps its weights as nested dicts of arrays; a caller turns
 them into numpy (``jax.tree.map(np.asarray, params)``) and hands them here.
 Layouts: dense weights are [in, out] there and [out, in] in ``nn.Linear``;
 the DINOv2 patch embedding is [14, 14, 3, D] there and [D, 3, 14, 14] in the
-conv; the camera-up conv weights are already OIHW in both. Nothing here
-imports JAX.
+conv; the camera-up and SuperPoint conv weights are already OIHW in both.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from torch import nn
 
 from sixdgs_torch.pose.dino import DinoViT
 from sixdgs_torch.pose.modules import Attention, CamUpHead, IdModule, RayMLP
+from sixdgs_torch.pose.superpoint import SuperPoint
 
 
 def _t(x) -> torch.Tensor:
@@ -67,6 +68,15 @@ def dino_from_numpy(params: Dict, device="cuda") -> DinoViT:
         _dense(blk.fc1, p["fc1"])
         _dense(blk.fc2, p["fc2"])
         _set(blk.ls2, _t(p["ls2"]))
+    return model.to(device)
+
+
+def superpoint_from_numpy(params: Dict, device="cuda") -> SuperPoint:
+    """SuperPoint from a sixdgs_tpu.pose.superpoint param dict of numpy
+    arrays ({name: {"w": OIHW, "b"}}; conv1a already 3 channels wide)."""
+    model = SuperPoint()
+    for name, p in params.items():
+        _conv(getattr(model, name), p)
     return model.to(device)
 
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card:
-B1 and B2 (attention scores), B5 (aligned-layout gather), B3 (tile
-compositor, with and without the transmittance store) and B4 (its
-backward, replaying and stored), and a training step on the card against
-the same step on the CPU.
+B1 and B2 (attention scores, at DINO's shape and, chunked and padded, at
+SuperPoint's), B5 (aligned-layout gather), B3 (tile compositor, with and
+without the transmittance store) and B4 (its backward, replaying and
+stored), a training step on the card against the same step on the CPU,
+and ``rasterize_tiled`` (plain PyTorch) on the card against the CPU.
 
 Imports torch and sixdgs_torch only, so it runs where JAX is not installed:
 
@@ -43,11 +44,11 @@ class TestAttentionScoresKernel:
     # CTAs' partials, cuBLAS in its own order; in bf16 a q'' computed in
     # another order can round apart
     @staticmethod
-    def _check(ins, mode, tol):
+    def _check(ins, mode, tol, launches=1):
         before = tak.attention_scores_fused.launches
         s, m, ss = tak.attention_scores_fwd(*ins, mode=mode)
         torch.cuda.synchronize()
-        assert tak.attention_scores_fused.launches == before + 1
+        assert tak.attention_scores_fused.launches == before + launches
         rs, rm, rss = tak.attention_scores_plain(*ins, mode=mode)
         scale = rs.abs().max().item()
         assert (s - rs).abs().max().item() <= tol * scale
@@ -99,11 +100,51 @@ class TestAttentionScoresKernel:
         assert (m == tak.NEG).all()
 
     def test_refuses_shapes_it_does_not_take(self):
+        """Any patch count and any width up to the compiled 384 are taken
+        (the wrapper pads and chunks); a wider one is refused."""
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA GPU and nvcc")
-        q, feats, wk, bk, pmask, valid = _b1_inputs(seed=4, N=64, n_invalid=0)
-        with pytest.raises(ValueError, match="kernel takes"):
-            tak.attention_scores_fused(q[:128], feats, wk, bk, pmask[:128], valid)
+        q, feats, wk, bk, pmask, valid = _b1_inputs(seed=4, N=64, n_invalid=0, d=400)
+        with pytest.raises(ValueError, match="d <= 384"):
+            tak.attention_scores_fused(q, feats, wk, bk, pmask, valid)
+
+    @pytest.mark.parametrize("mode,tol", [("f32", 1e-5), ("bf16_split3", 1e-5),
+                                          ("bf16", 1e-3)])
+    def test_superpoint_shape(self, mode, tol):
+        """P = 784 patches of width 256 (SuperPoint's 28 x 28 grid): four
+        launches of 256 patches on the width zero-padded to 384, against
+        the plain version at the true shape, under the DINO shape's limits;
+        a second call bitwise equal."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA GPU and nvcc")
+        ins = _b1_inputs(seed=14, P=784, d=256, N=32768)
+        first = self._check(ins, mode, tol, launches=4)
+        again = tak.attention_scores_fwd(*ins, mode=mode)
+        assert first[1].shape == (784, 1)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+    @pytest.mark.parametrize("mode", ["f32", "bf16", "bf16_split3"])
+    def test_dino_shape_is_one_launch(self, mode):
+        """At the compiled shape the wrapper launches once, on the inputs
+        themselves: its outputs are bitwise those of one direct launch."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA GPU and nvcc")
+        ins = _b1_inputs(seed=15, N=32768)
+        pmask, valid = ins[4].float(), ins[5]
+        before = tak.attention_scores_fused.launches
+        got = tak.attention_scores_fwd(*ins, mode=mode)
+        assert tak.attention_scores_fused.launches == before + 1
+        direct = tak._launch_fwd(*ins[:4], pmask, valid, mode, 384 ** 0.5)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, direct))
+        g = torch.randn(32768, device="cuda")
+        before = tak.attention_scores_bwd.launches
+        got = tak.attention_scores_bwd(*ins, got[1], got[2], g, mode=mode)
+        assert tak.attention_scores_bwd.launches == before + 1
+        direct = tak._launch_bwd(*ins[:4], pmask, valid, direct[1], direct[2], g, mode,
+                                 384 ** 0.5)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, direct))
 
 
 def _dbk_scale(ins, m, s, g):
@@ -121,7 +162,7 @@ def _dbk_scale(ins, m, s, g):
     return (dlog.T @ q).abs().sum(0).max().item()
 
 
-def _b2_check(ins, mode, tol, seed):
+def _b2_check(ins, mode, tol, seed, launches=1):
     """B2 against its plain version on the forward's residuals, each
     gradient within ``tol`` of its max |plain| (dbk: of _dbk_scale)."""
     g = torch.tensor(np.random.default_rng(seed).normal(size=ins[1].shape[0]),
@@ -130,7 +171,7 @@ def _b2_check(ins, mode, tol, seed):
     before = tak.attention_scores_bwd.launches
     out = tak.attention_scores_bwd(*ins, m, s, g, mode=mode)
     torch.cuda.synchronize()
-    assert tak.attention_scores_bwd.launches == before + 1
+    assert tak.attention_scores_bwd.launches == before + launches
     ref = tak.attention_scores_bwd_plain(*ins[:4], ins[4].float(), ins[5], m, s, g,
                                          mode=mode)
     for name, a, b in zip(("dq", "dfeats", "dwk", "dbk"), out, ref):
@@ -181,6 +222,28 @@ class TestAttentionScoresBackwardKernel:
         torch.cuda.synchronize()
         for name, a, b in zip(("dq", "dfeats", "dwk", "dbk"), first, second):
             assert torch.equal(a, b), name
+
+    @pytest.mark.parametrize("mode,tol", [("f32", 1e-4), ("bf16_split3", 1e-4),
+                                          ("bf16", 1e-2)])
+    def test_superpoint_shape(self, mode, tol):
+        """P = 784, d = 256: four launches, dq concatenated and dfeats, dWk,
+        dbk summed over them, against the plain version at the true shape,
+        under the DINO shape's limits; a second call bitwise equal."""
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA GPU and nvcc")
+        ins = _b1_inputs(seed=16, P=784, d=256, N=32768)
+        before = tak.attention_scores_bwd.launches
+        first = _b2_check(ins, mode, tol, seed=17, launches=4)
+        assert tak.attention_scores_bwd.launches == before + 4
+        assert [tuple(t.shape) for t in first] == [(784, 256), (32768, 256), (256, 256),
+                                                   (256,)]
+        assert (first[1][-700:] == 0).all()
+        _, m, s = tak.attention_scores_fwd(*ins, mode=mode)
+        g = torch.tensor(np.random.default_rng(17).normal(size=32768), dtype=torch.float32,
+                         device="cuda")
+        again = tak.attention_scores_bwd(*ins, m, s, g, mode=mode)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
     def test_all_invalid_rays_get_the_unmasked_gradient(self):
         """The TPU kernel does not mask dlog by validity: with every ray
@@ -638,3 +701,46 @@ class TestCompositeDesignCases:
             tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout,
                                      texcl=torch.zeros(rec.shape[1] // 128, 256, 128,
                                                        device="cuda"))
+
+
+@pytest.mark.cuda
+class TestTiledOnCard:
+    def test_rasterize_tiled_matches_cpu(self):
+        """rasterize_tiled (plain PyTorch, no kernel) on the card against
+        the same call on the CPU, forward and the gradients of every
+        differentiable field, with every tier and the k_max cap in use:
+        the same float32 arithmetic in the same slot order, so the image to
+        1e-5 and each gradient to 1e-4 of its largest magnitude (the
+        backward's sums run in other orders)."""
+        _need_card()
+        from sixdgs_torch.ops.rasterizer import projection as tproj
+        from sixdgs_torch.ops.rasterizer import tiles as ttiles
+
+        rng = np.random.default_rng(20)
+        n, W, H = 600, 150, 100
+        fields = dict(
+            means2d=rng.uniform([-10, -10], [W + 10, H + 10], size=(n, 2)),
+            depths=rng.uniform(1, 5, n),
+            conics=np.stack([rng.uniform(0.002, 0.05, n), rng.uniform(-0.001, 0.001, n),
+                             rng.uniform(0.002, 0.05, n)], 1),
+            radii=rng.integers(3, 80, n), colors=rng.uniform(0, 1, (n, 3)),
+            opacities=rng.uniform(0.1, 0.9, n))
+        kw = dict(t_max=4, mid_k=32, t_max_mid=16, overflow_k=8, t_max_big=64, k_max=96)
+        grads, imgs = {}, {}
+        for d in ("cpu", "cuda"):
+            leaves = {k: torch.tensor(v, dtype=torch.int32 if k == "radii" else torch.float32,
+                                      device=d) for k, v in fields.items()}
+            for k in ("means2d", "conics", "colors", "opacities"):
+                leaves[k].requires_grad_()
+            img = ttiles.rasterize_tiled(tproj.ProjectedGaussians(**leaves), W, H,
+                                         torch.full((3,), 0.3, device=d), **kw)
+            w = torch.tensor(np.random.default_rng(21).normal(size=(3, H, W)),
+                             dtype=torch.float32, device=d)
+            torch.sum(img * w).backward()
+            imgs[d] = img.detach().cpu()
+            grads[d] = {k: leaves[k].grad.cpu() for k in
+                        ("means2d", "conics", "colors", "opacities")}
+        assert (imgs["cpu"] - imgs["cuda"]).abs().max() <= 1e-5
+        for k, want in grads["cpu"].items():
+            scale = want.abs().max()
+            assert scale > 0 and (grads["cuda"][k] - want).abs().max() <= 1e-4 * scale, k

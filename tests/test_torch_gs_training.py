@@ -512,12 +512,20 @@ class TestTrainerRun:
 
     def test_truncation_widens_a_tier(self, dataset, capsys):
         _, tt = _trainers(dataset, dict(iterations=4, densify_from_iter=100))
+        logged = []
         tt.run(iterations=4, chunk=64, rasterizer="auto", tiers=(1, 4, 2, 2, 4),
                adapt_tiers_every=2, adapt_drop_threshold=1e-4)
         out = capsys.readouterr().out
         assert "widening tiers (1, 4, 2, 2, 4) ->" in out, out
+        # the tile rasterizer in plain PyTorch is taken too (its binning
+        # telemetry drives the same adaptation); a name that is no
+        # rasterizer is refused
+        tt.run(iterations=6, first_iteration=5, rasterizer="tiled", adapt_tiers_every=6,
+               log_every=1, callback=lambda it, m, tr: logged.append(m))
+        assert len(logged) == 2 and all(np.isfinite(m["loss"]) for m in logged)
+        assert "binning_total_area" in logged[-1] and "binning_nc_demand" not in logged[-1]
         with pytest.raises(ValueError, match="rasterizer"):
-            tt.run(iterations=5, first_iteration=5, rasterizer="tiled")
+            tt.run(iterations=7, first_iteration=7, rasterizer="nope")
 
 
 class TestCheckpoints:

@@ -140,8 +140,10 @@ class TestBackbone:
         np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), atol=1e-4, rtol=1e-4)
         np.testing.assert_array_equal(out[1].numpy(), np.asarray(ref[1]))
         np.testing.assert_allclose(out[2].numpy(), np.asarray(ref[2]), atol=1e-4, rtol=1e-4)
-        with pytest.raises(NotImplementedError):
-            tbb.backbone_features(tm, _t(img), _t(mask), backbone="superpoint")
+        # "superpoint" is a backbone now (tests/test_torch_superpoint_lpips.py);
+        # a name that is neither is refused
+        with pytest.raises(ValueError, match="backbone"):
+            tbb.backbone_features(tm, _t(img), _t(mask), backbone="nope")
 
 
 class TestWeights:

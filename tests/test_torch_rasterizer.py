@@ -639,8 +639,9 @@ class TestRasterizePallas:
         """Since the backward kernel was ported nothing is refused for
         requiring grad: every differentiable field of the projection gets a
         finite gradient of its own shape, the background gets none, and a
-        call under no_grad stays off the graph. ``"tiled"`` is the
-        rasterizer that is still refused."""
+        call under no_grad stays off the graph. A training step takes
+        ``"tiled"`` (the tile rasterizer in plain PyTorch) as well, and
+        refuses a name that is no rasterizer."""
         jp = _jax_proj(50, 32, 32, 0)
         tp = _to_torch_proj(jp)
         for field in ("means2d", "conics", "colors", "opacities"):
@@ -659,10 +660,13 @@ class TestRasterizePallas:
                                 device="cpu")
         state = ttrain.init_train_state(tscene)
         tc = tscam.make_synthetic_camera(16, 16, 0.9, 0.9, np.eye(3), np.zeros(3))
+        step = dict(cam=ttrain.camera_arrays(tc, "cpu", with_image=True), bg=torch.zeros(3),
+                    lrs=ttrain.lr_dict(tconfig.OptimizationConfig(), 1.0, 1), width=16,
+                    height=16, sh_degree=0)
+        _, metrics = ttrain.train_step(state, rasterizer="tiled", **step)
+        assert torch.isfinite(metrics["loss"]) and "binning_total_area" in metrics
         with pytest.raises(ValueError, match="rasterizer"):
-            ttrain.train_step(state, ttrain.camera_arrays(tc, "cpu", with_image=True),
-                              torch.zeros(3), ttrain.lr_dict(tconfig.OptimizationConfig(), 1.0, 1),
-                              width=16, height=16, sh_degree=0, rasterizer="tiled")
+            ttrain.train_step(state, rasterizer="nope", **step)
 
 
 # ------------------------------------------------------------ render_eval
@@ -707,14 +711,62 @@ class TestRenderEval:
         _close(got_scan, want_scan, atol=IMG_ATOL, rtol=0)
         _close(got, got_scan, atol=IMG_ATOL, rtol=0)
 
+    def test_default_budget_cuts_trailing_tiles(self, monkeypatch):
+        """render_eval passes no nc_pairs, so both packages render at the
+        default pair budget (DEFAULT_NC, read at each call), and a frame
+        whose aligned demand is above it has its trailing tiles cut: they
+        render as background, with no warning. With the default shrunk to
+        the smallest budget (1,024 slots) on a scene that wants more, the
+        two packages' images agree; every tile the cut emptied is the
+        background, and every tile it left whole equals the full-budget
+        render."""
+        arrays = _render_scene()
+        W, H = 56, 40
+        jscene = jg.from_arrays(arrays, max_sh_degree=3, capacity=512)
+        tscene = tg.from_arrays(arrays, max_sh_degree=3, capacity=512, device="cpu")
+        jc = jscam.make_synthetic_camera(W, H, 0.9, 0.7, np.eye(3), np.array([0.1, -0.1, 0]))
+        tc = tscam.make_synthetic_camera(W, H, 0.9, 0.7, np.eye(3), np.array([0.1, -0.1, 0]))
+        bg = np.array([0.1, 0.0, 0.3], np.float32)
+        full = _np(ttrain.render_eval(tscene, tc, bg, 3))
+        nc = tpt.ALIGN_CPB * tpt.KB
+        monkeypatch.setattr(jpt, "DEFAULT_NC", nc)
+        monkeypatch.setattr(tpt, "DEFAULT_NC", nc)
+        want = jtrain.render_eval(jscene, jc, jnp.asarray(bg), 3, rasterizer="pallas_interpret")
+        got = _np(ttrain.render_eval(tscene, tc, bg, 3))
+        _close(got, want, atol=IMG_ATOL, rtol=0)
+        proj = ttrain._project_params(tscene.params(), tscene.active,
+                                      ttrain.camera_arrays(tc, "cpu"), W, H, 3)
+        lay = tpt._compact_layout(proj, W, H, *(ttrain.DEFAULT_TIERS[i] for i in (0, 3, 4, 1, 2)),
+                                  0)
+        assert lay.nc == nc and int(lay.al_total) > nc
+        counts = _np(lay.starts[1:] - lay.starts[:-1])
+        kept = _np(lay.counts_k)
+        def by_tile(x):  # [3, H, W] -> [12 tiles, 3, 16, 16], padded past the edge
+            x = np.pad(x, ((0, 0), (0, 48 - H), (0, 64 - W)))
+            return x.reshape(3, 3, 16, 4, 16).transpose(1, 3, 0, 2, 4).reshape(12, 3, 16, 16)
+
+        tiles, ref = by_tile(got), by_tile(full)
+        inside = by_tile(np.ones((3, H, W))) > 0
+        emptied = (kept == 0) & (counts > 0)
+        whole = (kept == counts) & (counts > 0)
+        assert emptied.any() and whole.any()
+        for t in np.flatnonzero(emptied):
+            np.testing.assert_array_equal(
+                tiles[t][inside[t]], np.broadcast_to(bg[:, None, None], (3, 16, 16))[inside[t]])
+            assert np.abs(ref[t] - bg[:, None, None])[inside[t]].max() > 0.05
+        for t in np.flatnonzero(whole):
+            np.testing.assert_array_equal(tiles[t], ref[t])
+
     def test_rasterizer_names_and_camera_arrays(self):
         assert resolve_rasterizer("auto") == "pallas"
         assert resolve_rasterizer("scan") == "scan"
         tscene = tg.from_arrays(_render_scene(n=20), max_sh_degree=3, capacity=32,
                                 device="cpu")
         tc = tscam.make_synthetic_camera(16, 16, 0.9, 0.9, np.eye(3), np.zeros(3))
+        tiled = ttrain.render_eval(tscene, tc, np.zeros(3), 3, rasterizer="tiled")
+        _close(tiled, ttrain.render_eval(tscene, tc, np.zeros(3), 3), atol=IMG_ATOL, rtol=0)
         with pytest.raises(ValueError, match="rasterizer"):
-            ttrain.render_eval(tscene, tc, np.zeros(3), 3, rasterizer="tiled")
+            ttrain.render_eval(tscene, tc, np.zeros(3), 3, rasterizer="nope")
         jc = jscam.make_synthetic_camera(16, 16, 0.9, 0.9, np.eye(3), np.zeros(3))
         ta, ja = ttrain.camera_arrays(tc, "cpu"), jtrain.camera_arrays(jc)
         # a render leaves the ground-truth image on the host, a training
