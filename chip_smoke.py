@@ -121,7 +121,28 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      cell's camera 0 at 1232x816 render() through "tiled" (plain PyTorch)
      against "pallas" (the kernels), and one train step's gradients the
      same way, with the train step's, each render's and each metric's time,
-     and the tiled render's time and peak memory.
+     and the tiled render's time and peak memory;
+ 10. the rest of the CLIs at full width: a Cambridge Landmarks dataset of
+     the render scene (9 ring cameras as a VisualSFM reconstruction.nvm
+     stores them, 800x800 RGB PNGs, every 16th of its points), its loaded
+     R and T held to the written cameras (1e-5), and phase 8's driver run
+     and gates with --data_type cambridge_landmark (B1 132, B2 128);
+     ``apps.full_eval.main`` on a Tanks-and-Temples root holding the phase
+     8 dataset as ``truck``, 50 iterations at the default tiers (its one
+     logged step held to the grad_dropped rule), render and metrics (the
+     PLY, 2 test renders, finite SSIM, PSNR and LPIPS; B3 with the store,
+     B4 and B5 once per step, B5 and B3 once per render); the GUI server
+     over sockets on 127.0.0.1: one viewer message for the render cell's
+     camera 0 decoded by ``NetworkGUI.receive`` and rendered by
+     ``render_gui_camera`` through B5 and B3, held against rasterize_scan,
+     its bytes and verify string read back, then ``apps.train_gs.main
+     --gui`` for 8 iterations with a viewer thread reading a frame a step
+     (size, verify string, not all background; B5 and B3 once per frame on
+     top of the training's launches; every socket operation and the thread
+     time-limited); one eval_image inside ``utils.profiling.trace``, whose
+     trace names B1's four CUDA kernels, and ``time_fn`` of it;
+     ``apps.convert.main`` against a stub colmap (the four stages, the
+     move into sparse/0).
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -295,6 +316,24 @@ APPS_TIERS = ("4", "4096", "16", "256", "64")
 # ... and a few steps at the app's default tiers, held to the documented
 # grad_dropped rule
 APPS_DEFAULT_ITERS = 4
+# phase 10: a Cambridge Landmarks dataset of the render scene, whose loader
+# holds every 8th camera out for test (9 cameras leave POSE_TEST = 2), with
+# every 16th of the scene's points (16,384) in its NVM file; R and T read
+# back through the quaternion and the centre, against float64 cameras whose
+# numbers are written to 17 digits: rounding of ~1e-15, while a wrong
+# convention (the centre taken for T) is off by ~1
+CAMBRIDGE_CAMERAS = 9
+CAMBRIDGE_POINT_STRIDE = 16
+CAMBRIDGE_POSE_TOL = 1e-5
+# full_eval's depth, cut from 30,000 iterations: one telemetry step at
+# train_gs's default --log_every of 50
+FULL_EVAL_ITERS = 50
+# train_gs --gui: iterations (one viewer frame each), the viewer's time
+# limit for each socket operation and for its thread, and the share of a
+# frame's pixels that must differ from the background
+GUI_ITERS = 8
+GUI_CLIENT_TIMEOUT = 120.0
+GUI_MIN_COVER = 0.01
 # mean_sq_dist_3nn against torch.cdist: the matrix-product form rounds at
 # eps |x|^2 ~ 1e-6 absolute, against squared distances of ~1e-3
 KNN_ATOL, KNN_RTOL = 4e-6, 1e-4
@@ -416,11 +455,13 @@ def write_dataset(scene, arrays) -> str:
     return data
 
 
-def phase_pose_driver(ak, pt, scene, data, backbone: str = "dino") -> dict:
+def phase_pose_driver(ak, pt, scene, data, backbone: str = "dino",
+                      data_type: str = "blender", label: str = "") -> dict:
     """The pose driver at full width: ``apps.pose_eval.main`` on an
-    experiment directory of the render scene over the shared dataset
-    ``data``, with --fused_attention; with ``backbone="superpoint"``, from
-    random SuperPoint weights written as the JAX package's flat npz.
+    experiment directory of the render scene over the dataset ``data`` of
+    type ``data_type`` (the phase 8 Blender dataset, or phase 10's
+    Cambridge one), with --fused_attention; with ``backbone="superpoint"``,
+    from random SuperPoint weights written as the JAX package's flat npz.
 
     The driver catches a RuntimeError per scene (as the JAX driver does),
     prints it and exits normally, and torch reports CUDA faults as
@@ -439,9 +480,9 @@ def phase_pose_driver(ak, pt, scene, data, backbone: str = "dino") -> dict:
     from sixdgs_torch.pose import evaluate, superpoint, trainer
     from sixdgs_torch.utils.config import ModelConfig, write_cfg_args
 
-    label = f"phase 8 pose driver ({backbone})"
+    label = label or f"phase 8 pose driver ({backbone})"
     tmp = tempfile.mkdtemp(prefix=f"pose_driver_{backbone}_")
-    exp = os.path.join(tmp, "exp", "synthetic_ring_0001")
+    exp = os.path.join(tmp, "exp", f"{pose_eval.PREFIXES[data_type]}ring_0001")
     cfg = vars(ModelConfig(source_path=data, model_path=exp, eval=True))
     write_cfg_args(exp, cfg)
     ply = os.path.join(exp, "point_cloud", "iteration_30000", "point_cloud.ply")
@@ -475,7 +516,7 @@ def phase_pose_driver(ak, pt, scene, data, backbone: str = "dino") -> dict:
                 pt.pallas_composite_fwd, pt.pallas_composite_bwd)
     out_json = os.path.join(tmp, "pose_results.json")
     argv = ["--exp_path", os.path.dirname(exp), "--out_path", out_json, "--data_type",
-            "blender", "--fused_attention", "--ray_budget", str(POSE_RAYS), "--batch",
+            data_type, "--fused_attention", "--ray_budget", str(POSE_RAYS), "--batch",
             str(POSE_BATCH), "--n_iterations", str(POSE_STEPS)] + extra
     err = io.StringIO()
     trainer.PoseTrainer.run, evaluate.test_pose_estimation = timed_run, timed_test
@@ -552,6 +593,52 @@ def image_gate(label: str, got, want) -> float:
     return worst
 
 
+def observe_gs_run(ak, pt, call, before_run=None):
+    """``call()`` (an app that trains through GSTrainer.run) with every
+    step's start time and metrics read from inside the run (its pre_step
+    and callback hooks), and the launch counts zeroed just before the call
+    and read at the end of the run and at the end of the call; with
+    ``before_run``, called as the run starts -> (wall s, launches of the
+    call, launches of the run, [(iteration, start time)] then (None, end
+    time), [(iteration, metrics)] of the logged steps)."""
+    from sixdgs_torch.train import gs_trainer as gs
+
+    run = gs.GSTrainer.run
+    steps, logged, at_run_end = [], [], {}
+
+    def observed_run(self, *a, callback=None, pre_step=None, **k):
+        def pre(it, tr):
+            torch.cuda.synchronize()
+            steps.append((it, time.perf_counter()))
+            if pre_step is not None:
+                pre_step(it, tr)
+
+        def cb(it, metrics, tr):
+            logged.append((it, metrics))
+            if callback is not None:
+                callback(it, metrics, tr)
+
+        if before_run is not None:
+            before_run()
+        out = run(self, *a, callback=cb, pre_step=pre, **k)
+        torch.cuda.synchronize()
+        steps.append((None, time.perf_counter()))
+        at_run_end.update(launch_counts(ak, pt))
+        return out
+
+    gs.GSTrainer.run = observed_run
+    try:
+        torch.cuda.synchronize()
+        zero_launch_counts(ak, pt)
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return wall, launch_counts(ak, pt), at_run_end, steps, logged
+    finally:
+        gs.GSTrainer.run = run
+
+
 def phase_gs_apps(ak, pt, scene, data, render, gs_run) -> dict:
     """The 3DGS apps at full width, as a user calls them: ``apps.train_gs``
     (--rasterizer auto --eval, APPS_ITERS iterations from the dataset's
@@ -583,41 +670,10 @@ def phase_gs_apps(ak, pt, scene, data, render, gs_run) -> dict:
     n_images = POSE_TRAIN + POSE_TEST
 
     # train_gs
-    run = gs.GSTrainer.run
-
     def train_app(argv):
-        """train_gs.main(argv) with every step's start time and metrics
-        read from inside the CLI -> (wall s, launches, steps, logged)."""
-        steps, logged = [], []
-
-        def observed_run(self, *a, callback=None, pre_step=None, **k):
-            def pre(it, tr):
-                torch.cuda.synchronize()
-                steps.append((it, time.perf_counter()))
-                if pre_step is not None:
-                    pre_step(it, tr)
-
-            def cb(it, metrics, tr):
-                logged.append((it, metrics))
-                if callback is not None:
-                    callback(it, metrics, tr)
-
-            out = run(self, *a, callback=cb, pre_step=pre, **k)
-            torch.cuda.synchronize()
-            steps.append((None, time.perf_counter()))
-            return out
-
-        gs.GSTrainer.run = observed_run
-        try:
-            torch.cuda.synchronize()
-            zero_launch_counts(ak, pt)
-            t0 = time.perf_counter()
-            train_gs.main(argv)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            return wall, launch_counts(ak, pt), steps, logged
-        finally:
-            gs.GSTrainer.run = run
+        """train_gs.main(argv) observed -> (wall s, launches, steps, logged)."""
+        wall, launches, _, steps, logged = observe_gs_run(ak, pt, lambda: train_gs.main(argv))
+        return wall, launches, steps, logged
 
     def binning(logged):
         """Every logged step's binning telemetry, held to its own
@@ -849,6 +905,457 @@ def phase_gs_apps(ak, pt, scene, data, render, gs_run) -> dict:
             "results": results, "tiled_err": tiled_err, "tiled_grad_err": worst,
             "binning": {k: [min(v), max(v)] for k, v in tel.items()},
             "default_tiers": tel_default}
+
+
+def rotmat_to_qvec(R: np.ndarray) -> np.ndarray:
+    """(w, x, y, z) of a rotation matrix (COLMAP's rotmat2qvec)."""
+    rxx, ryx, rzx, rxy, ryy, rzy, rxz, ryz, rzz = R.flat
+    K = np.array([[rxx - ryy - rzz, 0, 0, 0],
+                  [ryx + rxy, ryy - rxx - rzz, 0, 0],
+                  [rzx + rxz, rzy + ryz, rzz - rxx - ryy, 0],
+                  [ryz - rzy, rzx - rxz, rxy - ryx, rxx + ryy + rzz]]) / 3.0
+    vals, vecs = np.linalg.eigh(K)
+    q = vecs[[3, 0, 1, 2], np.argmax(vals)]
+    return -q if q[0] < 0 else q
+
+
+def write_cambridge_dataset(scene, arrays, root: str) -> list:
+    """A Cambridge Landmarks (VisualSFM) dataset of ``scene``:
+    CAMBRIDGE_CAMERAS RGB PNGs of IMAGE_HW x IMAGE_HW rendered with
+    render_eval over black from cameras on a ring at radius 3.1 (the port's
+    PNG writer), and reconstruction.nvm holding each camera as the format
+    stores it (file name, one focal, the world->camera quaternion, the
+    camera centre) and every CAMBRIDGE_POINT_STRIDE-th point of the scene
+    with its colour -> [(R_c2w, centre)] in file-name order."""
+    from sixdgs_torch.ops.cameras import fov2focal
+    from sixdgs_torch.scene.cameras import make_synthetic_camera
+    from sixdgs_torch.scene.png import write_png
+    from sixdgs_torch.train.gs_trainer import render_eval
+
+    def nums(v):
+        return " ".join(repr(float(x)) for x in v)
+
+    os.makedirs(os.path.join(root, "seq1"))
+    black = torch.zeros(3, device=scene.xyz.device)
+    focal = fov2focal(POSE_FOV, IMAGE_HW)
+    lines, written = ["NVM_V3", "", str(CAMBRIDGE_CAMERAS)], []
+    for i in range(CAMBRIDGE_CAMERAS):
+        ang = 2 * math.pi * (i + 0.25) / CAMBRIDGE_CAMERAS
+        pos = np.array([3 * math.cos(ang), 0.8, 3 * math.sin(ang)])
+        R = look_at_c2w(pos)[:3, :3].astype(np.float64)
+        cam = make_synthetic_camera(IMAGE_HW, IMAGE_HW, POSE_FOV, POSE_FOV, R, -R.T @ pos,
+                                    uid=i, name=f"frame{i:05d}")
+        img = render_eval(scene, cam, black, scene.max_sh_degree)
+        name = f"seq1/frame{i:05d}.png"
+        write_png(os.path.join(root, name), (img.clamp(0.0, 1.0) * 255.0 + 0.5).to(
+            torch.uint8).permute(1, 2, 0).cpu().numpy())
+        lines.append(f"{name} {focal!r} {nums(rotmat_to_qvec(R.T))} {nums(pos)} 0 0")
+        written.append((R, pos))
+    pts = arrays["xyz"][::CAMBRIDGE_POINT_STRIDE]
+    rgb = np.clip(arrays["features_dc"][::CAMBRIDGE_POINT_STRIDE, 0] * 0.28209479177387814
+                  + 0.5, 0, 1)
+    lines.append(str(len(pts)))
+    lines += [f"{nums(p)} {r} {g} {b} 0" for p, (r, g, b) in zip(pts, (rgb * 255).astype(int))]
+    lines.append("0")
+    with open(os.path.join(root, "reconstruction.nvm"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return written
+
+
+def phase_cambridge_driver(ak, pt, scene, arrays) -> dict:
+    """The pose driver on a Cambridge Landmarks dataset of the render scene
+    (write_cambridge_dataset): the loader's cameras held to the ones the
+    file was written from (the NVM stores the camera centre, so
+    T = -R_w2c c), then phase 8's driver run and gates with --data_type
+    cambridge_landmark on an experiment directory cl_ring_0001. Every 8th
+    camera is a test camera, POSE_TEST of CAMBRIDGE_CAMERAS, so the
+    launches are phase 8's: B1 POSE_STEPS * POSE_BATCH + 2 * POSE_TEST =
+    132, B2 128."""
+    from sixdgs_torch.scene.dataset_loader import load_data
+    from sixdgs_torch.utils.config import dotdict
+
+    tmp = tempfile.mkdtemp(prefix="cambridge_")
+    data = os.path.join(tmp, "ring")
+    t0 = time.perf_counter()
+    written = write_cambridge_dataset(scene, arrays, data)
+    t_write = time.perf_counter() - t0
+    info = load_data(dotdict(source_path=data, images=None, eval=True,
+                             white_background=False))
+    cams = info.train_cameras + info.test_cameras
+    worst = 0.0
+    for c in cams:
+        R, centre = written[int(c.image_name[len("frame"):])]
+        worst = max(worst, float(np.abs(c.R - R).max()),
+                    float(np.abs(c.T + R.T @ centre).max()))
+    log(f"phase 10 Cambridge dataset: {CAMBRIDGE_CAMERAS} images of {IMAGE_HW}x{IMAGE_HW} "
+        f"and {len(info.point_cloud.points)} points written in {t_write:.1f} s; loaded "
+        f"{len(info.train_cameras)} train and {len(info.test_cameras)} test cameras; their R "
+        f"and T against the written cameras: max abs {worst:.3e} (limit "
+        f"{CAMBRIDGE_POSE_TOL})")
+    if len(info.test_cameras) != POSE_TEST or len(cams) != CAMBRIDGE_CAMERAS or not (
+            worst <= CAMBRIDGE_POSE_TOL):
+        raise AssertionError(f"Cambridge loader: {len(info.train_cameras)} train, "
+                             f"{len(info.test_cameras)} test cameras, pose error {worst}")
+    out = phase_pose_driver(ak, pt, scene, data, data_type="cambridge_landmark",
+                            label="phase 10 pose driver (cambridge_landmark)")
+    shutil.rmtree(tmp)
+    return {**out, "pose_err": worst, "write_s": t_write}
+
+
+def phase_full_eval(ak, pt, data) -> dict:
+    """``apps.full_eval.main`` on a Tanks-and-Temples root whose one scene
+    directory, ``truck``, is the phase 8 dataset, at FULL_EVAL_ITERS
+    iterations with a random VGG LPIPS npz: train_gs (its default tiers;
+    its default --log_every of 50 logs the last step only), render
+    --skip_train, metrics. Launches: B3 with the store, B4 and B5 once per
+    step; B5 and B3 once per rendered test image. The fresh 262,144-point
+    cloud passes the 2^20 pair budget at the default tiers, so the logged
+    step is held to the grad_dropped rule, not to a falling loss."""
+    from sixdgs_torch.apps import full_eval
+    from sixdgs_torch.pose import lpips
+
+    tmp = tempfile.mkdtemp(prefix="full_eval_")
+    tat = os.path.join(tmp, "tat")
+    os.makedirs(tat)
+    os.symlink(data, os.path.join(tat, "truck"))
+    npz = os.path.join(tmp, "lpips_vgg.npz")
+    lpips.save_params(npz, lpips.init_params(torch.Generator().manual_seed(SEED), "vgg",
+                                             device="cpu"))
+    out = os.path.join(tmp, "eval")
+    argv = ["--tanksandtemples", tat, "--output_path", out, "--iterations",
+            str(FULL_EVAL_ITERS), "--lpips_weights", npz]
+    wall, launches, launches_run, steps, logged = observe_gs_run(
+        ak, pt, lambda: full_eval.main(argv))
+    n = FULL_EVAL_ITERS
+    expected_run = {"b1": 0, "b2": 0, "b5": n, "b3": 0, "b3_store": n, "b4": n}
+    expected = {**expected_run, "b5": n + POSE_TEST, "b3": POSE_TEST}
+    train_s = steps[-1][1] - steps[0][1]
+    ms = [1e3 * (t1 - t0) for (_, t0), (_, t1) in zip(steps, steps[1:])]
+    step_ms = statistics.median(ms[1:])
+    model = os.path.join(out, "truck")
+    renders = os.path.join(model, "test", f"ours_{n}", "renders")
+    with open(os.path.join(model, "results.json")) as fh:
+        results = json.load(fh)
+    rule = [(it, int(m["binning_grad_dropped"]), int(m["binning_nc_demand"] > pt.DEFAULT_NC))
+            for it, m in logged]
+    log(f"phase 10 full_eval.main({' '.join(argv)}) in {wall:.2f} s (training {train_s:.2f} "
+        f"s, {step_ms:.1f} ms per step, median of the steps after the first); launches "
+        f"{json.dumps(launches)} (expected {json.dumps(expected)}), of which the "
+        f"training's {json.dumps(launches_run)}; logged steps (iteration, grad_dropped, "
+        f"nc_demand > {pt.DEFAULT_NC}): {rule}, nc_demand "
+        f"{[int(m['binning_nc_demand']) for _, m in logged]}; {json.dumps(results)}")
+    if launches != expected or launches_run != expected_run:
+        raise AssertionError(f"full_eval launches {launches} (training {launches_run})")
+    if not os.path.exists(os.path.join(model, "point_cloud", f"iteration_{n}",
+                                       "point_cloud.ply")):
+        raise AssertionError("full_eval wrote no PLY at the last iteration")
+    if len(os.listdir(renders)) != POSE_TEST or os.path.exists(os.path.join(model, "train")):
+        raise AssertionError(f"full_eval rendered {sorted(os.listdir(renders))}")
+    res = results.get(f"test/ours_{n}", {})
+    if list(results) != [f"test/ours_{n}"] or not all(
+            res.get(k) is not None and math.isfinite(res[k]) for k in ("SSIM", "PSNR", "LPIPS")):
+        raise AssertionError(f"results.json {results}")
+    if [it for it, _, _ in rule] != [n] or any(d != want for _, d, want in rule):
+        raise AssertionError(f"full_eval's logged steps break the grad_dropped rule: {rule}")
+    shutil.rmtree(tmp)
+    return {"launches": launches, "launches_run": launches_run, "wall_s": wall,
+            "train_s": train_s, "step_ms": step_ms, "results": results,
+            "grad_dropped": [d for _, d, _ in rule]}
+
+
+def viewer_message(cam, train: bool = True, keep_alive: bool = True,
+                   scaling: float = 1.0) -> dict:
+    """The JSON a SIBR viewer sends for a camera: glm-order (transposed)
+    matrices with the OpenGL axis flips that NetworkGUI.receive undoes."""
+    wvt = np.asarray(cam.view, np.float32).T.copy()
+    wvt[:, 1:3] *= -1
+    fpt = np.asarray(cam.full_proj, np.float32).T.copy()
+    fpt[:, 1] *= -1
+    return {"resolution_x": cam.width, "resolution_y": cam.height, "train": train,
+            "fov_y": cam.FoVy, "fov_x": cam.FoVx, "z_near": cam.znear, "z_far": cam.zfar,
+            "shs_python": False, "rot_scale_python": False, "keep_alive": keep_alive,
+            "scaling_modifier": scaling, "view_matrix": wvt.flatten().tolist(),
+            "view_projection_matrix": fpt.flatten().tolist()}
+
+
+def recv_exact(sock, n: int) -> bytes:
+    buf = bytearray()
+    while len(buf) < n:
+        chunk = sock.recv(min(n - len(buf), 1 << 20))
+        if not chunk:
+            raise ConnectionError(f"the server closed after {len(buf)} of {n} bytes")
+        buf += chunk
+    return bytes(buf)
+
+
+def viewer(port: int, messages, connected, out: dict) -> None:
+    """A viewer on 127.0.0.1:port (a thread's body): connect, retrying until
+    the server listens, within GUI_CLIENT_TIMEOUT; set ``connected``; then
+    send each message and read its answer, each socket operation within
+    GUI_CLIENT_TIMEOUT. out["frames"]: [(image bytes, verify string)];
+    out["ms"]: per message, from its send to the end of its answer; an
+    exception goes to out["error"]."""
+    import socket
+
+    try:
+        deadline = time.monotonic() + GUI_CLIENT_TIMEOUT
+        while True:
+            try:
+                sock = socket.create_connection(("127.0.0.1", port),
+                                                timeout=GUI_CLIENT_TIMEOUT)
+                break
+            except ConnectionRefusedError:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.005)
+        connected.set()
+        out["frames"], out["ms"] = [], []
+        with sock:
+            for msg in messages:
+                t0 = time.perf_counter()
+                payload = json.dumps(msg).encode()
+                sock.sendall(len(payload).to_bytes(4, "little") + payload)
+                img = recv_exact(sock, msg["resolution_x"] * msg["resolution_y"] * 3)
+                length = int.from_bytes(recv_exact(sock, 4), "little")
+                out["frames"].append((img, recv_exact(sock, length).decode("ascii")))
+                out["ms"].append(1e3 * (time.perf_counter() - t0))
+    except Exception as e:  # check_viewer raises it in the phase
+        out["error"] = e
+
+
+def start_viewer(port: int, messages):
+    """A viewer thread on ``port`` -> (thread, connected event, its out)."""
+    import threading
+
+    connected, out = threading.Event(), {}
+    th = threading.Thread(target=viewer, args=(port, messages, connected, out), daemon=True)
+    th.start()
+    return th, connected, out
+
+
+def check_viewer(label: str, th, out: dict) -> None:
+    """Raise if the viewer thread (joined already) is still running or
+    failed."""
+    if th.is_alive():
+        raise AssertionError(f"{label}: the viewer did not finish within "
+                             f"{GUI_CLIENT_TIMEOUT} s")
+    if "error" in out:
+        raise AssertionError(f"{label}: the viewer failed: {out['error']!r}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_gui(ak, pt, scene, data, render) -> dict:
+    """The GUI server over real sockets on 127.0.0.1. (a) One viewer message
+    for the render cell's camera 0 at 1232x816, decoded by the port's
+    NetworkGUI.receive and rendered by render_gui_camera (B5 and B3 without
+    the store, once each), held against phase 5's rasterize_scan image of
+    that camera (image_gate); the bytes the viewer reads equal
+    image_to_bytes of that image, and the verify string comes back. (b)
+    ``apps.train_gs.main --gui`` for GUI_ITERS iterations on the phase 8
+    dataset at the cut tiers, a viewer thread sending one message a step
+    for the dataset's first test camera (train, keep_alive false on the
+    last) and reading each frame: every frame W*H*3 bytes and not all
+    background, the dataset's absolute path as the verify string, and B5
+    and B3 once per frame on top of the training's launches."""
+    from sixdgs_torch.apps import train_gs
+    from sixdgs_torch.renderer.network_gui import NetworkGUI, image_to_bytes
+    from sixdgs_torch.scene.cameras import camera_list_from_infos
+    from sixdgs_torch.scene.dataset_loader import load_data
+    from sixdgs_torch.train.gs_trainer import render_gui_camera
+    from sixdgs_torch.utils.config import dotdict
+
+    verify = os.path.abspath(data)
+    # (a) one frame of the render scene
+    cam0, bg = render["cams"][0], render["bg"]
+    port = free_port()
+    gui = NetworkGUI("127.0.0.1", port)
+    th, connected, out = start_viewer(port, [viewer_message(cam0)])
+    try:
+        if not connected.wait(GUI_CLIENT_TIMEOUT):
+            raise AssertionError("phase 10 GUI (a): the viewer never connected")
+        deadline = time.monotonic() + GUI_CLIENT_TIMEOUT
+        while gui.conn is None and time.monotonic() < deadline:
+            gui.try_connect()
+            time.sleep(0.001)
+        gui_cam, do_training, _, _, keep_alive, scaling = gui.receive()
+        torch.cuda.synchronize()
+        zero_launch_counts(ak, pt)
+        t0 = time.perf_counter()
+        img = render_gui_camera(scene, gui_cam, bg, scene.max_sh_degree,
+                                scaling_modifier=scaling)
+        torch.cuda.synchronize()
+        frame_ms = 1e3 * (time.perf_counter() - t0)
+        launches_a = launch_counts(ak, pt)
+        frame = image_to_bytes(img.cpu().numpy())
+        gui.send(frame, verify)
+    finally:
+        gui.close()
+        th.join(GUI_CLIENT_TIMEOUT)
+    check_viewer("phase 10 GUI (a)", th, out)
+    expected = {"b1": 0, "b2": 0, "b5": 1, "b3": 1, "b3_store": 0, "b4": 0}
+    vs_render_eval = (img - render["imgs"][0]).abs().max().item()
+    log(f"phase 10 GUI (a): viewer camera {gui_cam.width}x{gui_cam.height} (train "
+        f"{do_training}, keep_alive {keep_alive}, scaling {scaling}); render_gui_camera "
+        f"{frame_ms:.2f} ms, launches {json.dumps(launches_a)}; {out['ms'][0]:.1f} ms from "
+        f"the viewer's send to the end of its frame; max abs against render_eval's image "
+        f"of the camera {vs_render_eval:.3e}")
+    if launches_a != expected or (gui_cam.width, gui_cam.height) != (RENDER_W, RENDER_H):
+        raise AssertionError(f"phase 10 GUI (a): launches {launches_a}, camera "
+                             f"{gui_cam.width}x{gui_cam.height}")
+    gui_err = image_gate("phase 10 GUI (a) frame vs rasterize_scan", img, render["ref"])
+    if out["frames"] != [(frame, verify)]:
+        raise AssertionError("phase 10 GUI (a): the viewer read other bytes than were sent")
+
+    # (b) train_gs --gui
+    info = load_data(dotdict(source_path=data, images=None, eval=True, white_background=False))
+    cam = camera_list_from_infos(info.test_cameras)[0]
+    messages = [viewer_message(cam, keep_alive=i < GUI_ITERS - 1) for i in range(GUI_ITERS)]
+    tmp = tempfile.mkdtemp(prefix="gui_")
+    port = free_port()
+    argv = ["--source_path", data, "--model_path", os.path.join(tmp, "model"), "--eval",
+            "--iterations", str(GUI_ITERS), "--test_iterations", "-1", "--save_iterations",
+            str(GUI_ITERS), "--rasterizer", "auto", "--quiet", "--binning_tiers", *APPS_TIERS,
+            "--gui", "--ip", "127.0.0.1", "--port", str(port)]
+    th, connected, out_b = start_viewer(port, messages)
+
+    def wait_for_viewer():
+        # the viewer connects once the server listens; the first step's
+        # pre_step then accepts it
+        if not connected.wait(GUI_CLIENT_TIMEOUT):
+            raise AssertionError("phase 10 GUI (b): the viewer never connected")
+
+    try:
+        wall, launches, _, steps, _ = observe_gs_run(
+            ak, pt, lambda: train_gs.main(argv), before_run=wait_for_viewer)
+    finally:
+        th.join(GUI_CLIENT_TIMEOUT)
+    check_viewer("phase 10 GUI (b)", th, out_b)
+    n = GUI_ITERS
+    expected = {"b1": 0, "b2": 0, "b5": 2 * n, "b3": n, "b3_store": n, "b4": n}
+    # train_gs composites over black: a pixel is background where all three
+    # channels are 0
+    shares = [float(np.frombuffer(f, np.uint8).reshape(-1, 3).any(1).mean())
+              for f, _ in out_b["frames"]]
+    ms = [1e3 * (t1 - t0) for (_, t0), (_, t1) in zip(steps, steps[1:])]
+    log(f"phase 10 GUI (b): train_gs.main({' '.join(argv)}) in {wall:.2f} s; launches "
+        f"{json.dumps(launches)} (expected {json.dumps(expected)}); {len(out_b['frames'])} "
+        f"frames of {cam.width}x{cam.height}; ms from the viewer's send to the end of each "
+        f"frame {[round(x, 1) for x in out_b['ms']]}; ms per step (its frame and its "
+        f"training step) {[round(x, 1) for x in ms]}; share of each frame's pixels off the "
+        f"background {[round(x, 4) for x in shares]}; {gpu_line()}")
+    if launches != expected or len(out_b["frames"]) != n:
+        raise AssertionError(f"phase 10 GUI (b): launches {launches}, "
+                             f"{len(out_b['frames'])} frames")
+    for (f, v), share in zip(out_b["frames"], shares):
+        if len(f) != cam.width * cam.height * 3 or v != verify or not share > GUI_MIN_COVER:
+            raise AssertionError(f"phase 10 GUI (b): a frame of {len(f)} bytes, verify "
+                                 f"{v!r}, {share} of its pixels off the background")
+    if not os.path.exists(os.path.join(tmp, "model", "point_cloud", f"iteration_{n}",
+                                       "point_cloud.ply")):
+        raise AssertionError("phase 10 GUI (b): train_gs wrote no PLY")
+    shutil.rmtree(tmp)
+    return {"launches_frame": launches_a, "launches_train_gs": launches, "gui_err": gui_err,
+            "frame_ms": frame_ms, "viewer_ms": out["ms"][0],
+            "train_gs_viewer_ms": out_b["ms"], "train_gs_step_ms": ms, "train_gs_wall_s": wall}
+
+
+def phase_profiling(ak, run_image) -> dict:
+    """``utils.profiling`` on the serving path: one ``run_image()`` (an
+    eval_image call with fused_attention) inside ``profiling.trace``, whose
+    trace must name B1's four CUDA kernels; then ``time_fn`` of it."""
+    from sixdgs_torch.utils import profiling
+
+    tmp = tempfile.mkdtemp(prefix="trace_")
+    torch.cuda.synchronize()
+    ak.attention_scores_fused.launches = 0
+    with profiling.trace(tmp):
+        run_image()
+        torch.cuda.synchronize()
+    launches = ak.attention_scores_fused.launches
+    traces = [os.path.join(d, f) for d, _, fs in os.walk(tmp) for f in fs
+              if f.endswith(".json")]
+    text = "".join(open(f).read() for f in traces)
+    names = ("b1_gemm_tile", "b1_pack_q", "b1_stats", "b1_emit")
+    missing = [k for k in names if k not in text]
+    timing = profiling.time_fn(run_image, iters=5)
+    log(f"phase 10 profiling.trace: {len(traces)} trace file(s), {len(text)} bytes, B1 "
+        f"launches {launches}, kernels named {[k for k in names if k in text]}; "
+        f"time_fn of eval_image {json.dumps(timing)}")
+    if not traces or missing or launches != 1:
+        raise AssertionError(f"profiling.trace: files {traces}, B1 kernels missing "
+                             f"{missing}, B1 launches {launches}")
+    shutil.rmtree(tmp)
+    return {"launches": launches, **timing}
+
+
+def phase_convert() -> dict:
+    """``apps.convert.main`` against a stub ``colmap`` (a Python script that
+    logs its arguments and makes each stage's outputs, since the card's
+    machine has no COLMAP): the four stages in order, with the reference's
+    flags, and the undistorted model moved into sparse/0."""
+    import contextlib
+    import io
+
+    from sixdgs_torch.apps import convert
+
+    tmp = tempfile.mkdtemp(prefix="convert_")
+    src = os.path.join(tmp, "scene")
+    os.makedirs(os.path.join(src, "input"))
+    with open(os.path.join(src, "input", "0.png"), "wb") as fh:
+        fh.write(b"stub")
+    calls = os.path.join(tmp, "colmap_calls.log")
+    stub = os.path.join(tmp, "colmap")
+    with open(stub, "w") as fh:
+        fh.write(f"""#!{sys.executable}
+import os, sys
+with open({calls!r}, "a") as fh:
+    fh.write(" ".join(sys.argv[1:]) + "\\n")
+made = {{"mapper": "distorted/sparse/0", "image_undistorter": "sparse"}}.get(sys.argv[1])
+if made:
+    os.makedirs(os.path.join({src!r}, made), exist_ok=True)
+    os.makedirs(os.path.join({src!r}, "images"), exist_ok=True)
+    for name in ("cameras.bin", "images.bin", "points3D.bin"):
+        open(os.path.join({src!r}, made, name), "w").close()
+""")
+    os.chmod(stub, 0o755)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        convert.main(["--source_path", src, "--colmap_executable", stub, "--no_gpu"])
+    with open(calls) as fh:
+        lines = fh.read().splitlines()
+    stages = [c.split()[0] for c in lines]
+    moved = sorted(os.listdir(os.path.join(src, "sparse", "0")))
+    log(f"phase 10 convert.main with a stub colmap: stages {stages}, sparse/0 {moved}; "
+        f"printed {printed.getvalue().splitlines()[-1]!r}")
+    if (stages != ["feature_extractor", "exhaustive_matcher", "mapper", "image_undistorter"]
+            or "--SiftExtraction.use_gpu 0" not in lines[0]
+            or "--Mapper.ba_global_function_tolerance=0.000001" not in lines[2]
+            or moved != ["cameras.bin", "images.bin", "points3D.bin"]
+            or os.path.exists(os.path.join(src, "sparse", "cameras.bin"))):
+        raise AssertionError(f"convert: {lines}, sparse/0 {moved}")
+    shutil.rmtree(tmp)
+    return {"stages": stages}
+
+
+def phase_rest_of_clis(ak, pt, scene, arrays, data, render, run_image) -> dict:
+    """Phase 10: the Cambridge pose driver, full_eval, the GUI server,
+    profiling and convert."""
+    t0 = time.perf_counter()
+    out = {"cambridge": phase_cambridge_driver(ak, pt, scene, arrays),
+           "full_eval": phase_full_eval(ak, pt, data),
+           "gui": phase_gui(ak, pt, scene, data, render),
+           "profiling": phase_profiling(ak, run_image),
+           "convert": phase_convert()}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 10 the rest of the CLIs: ok in {out['wall_s']:.1f} s")
+    return out
 
 
 def host_ms(fn, calls: int = 200) -> float:
@@ -1665,7 +2172,7 @@ def phase_render(ak, scene):
         f"{int((err > 1e-4).sum())} of {err.numel()}")
     if not (render_err <= RENDER_MAX_ERR and share <= RENDER_SHARE_OVER_1E3):
         raise AssertionError(f"render off the golden model: {render_err}, {share}")
-    del ref, err
+    del err
 
     # the kernels at the scene's shapes (camera 0)
     gidx_al = pt._align_compact(lay.gidx_c, lay.starts, lay.starts_al, lay.n_tiles, lay.P)
@@ -1688,7 +2195,7 @@ def phase_render(ak, scene):
     log("phase 5 render: ok")
     return {"cams": cams, "bg": bg, "lay": lay, "records_t": records_t, "work": work,
             "launches": launches, "b3_err": b3_err, "b5_err": b5_err, "b4_err": b4_err,
-            "render_err": render_err, "imgs": imgs}
+            "render_err": render_err, "imgs": imgs, "ref": ref}
 
 
 def b3_bound(work, lay, store: bool = False):
@@ -2331,7 +2838,15 @@ def main() -> int:
 
     # 9. the 3DGS apps at full width on the same dataset
     apps = phase_gs_apps(ak, pt, scene, data, render, gs_run)
+
+    # 10. the rest of the CLIs at full width: the Cambridge pose driver,
+    # full_eval, the GUI server, profiling and convert
+    rest = phase_rest_of_clis(
+        ak, pt, scene, arrays, data, render,
+        lambda: eval_image(dino_model, id_module, images[0], masks[0], c2ws[0], rays,
+                           fused_attention=True))
     shutil.rmtree(os.path.dirname(data))
+    cl, fe, gui = rest["cambridge"], rest["full_eval"], rest["gui"]
 
     records = [{
         "name": "B1 attention_scores_fused (_fwd_kernel_train; 4 CUDA kernels per launch, "
@@ -2343,7 +2858,9 @@ def main() -> int:
         "launches": driver["launches"][0],
         "launches_by_path": {"serving": launches, "training": train_b1,
                              "pose_driver": driver["launches"][0],
-                             "pose_driver_superpoint": sp_driver["launches"][0]},
+                             "pose_driver_superpoint": sp_driver["launches"][0],
+                             "pose_driver_cambridge": cl["launches"][0],
+                             "profiling_trace": rest["profiling"]["launches"]},
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -2366,7 +2883,8 @@ def main() -> int:
         "launches": driver["launches"][1],
         "launches_by_path": {"serving": 0, "training": train_b2,
                              "pose_driver": driver["launches"][1],
-                             "pose_driver_superpoint": sp_driver["launches"][1]},
+                             "pose_driver_superpoint": sp_driver["launches"][1],
+                             "pose_driver_cambridge": cl["launches"][1]},
         "max_abs_err": b2_max_abs_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
@@ -2391,7 +2909,10 @@ def main() -> int:
                              "gs_training": gs_run["launches"]["b5"],
                              "pose_driver": driver["launches"][2],
                              "train_gs_app": apps["launches"]["b5"],
-                             "render_app": apps["launches_render"]["b5"]},
+                             "render_app": apps["launches_render"]["b5"],
+                             "full_eval": fe["launches"]["b5"],
+                             "gui_frame": gui["launches_frame"]["b5"],
+                             "gui_train_gs": gui["launches_train_gs"]["b5"]},
         "max_abs_err": render["b5_err"],
         "ms": b5_ms,
         "plain_ms": b5_plain_ms,
@@ -2414,7 +2935,12 @@ def main() -> int:
                              "gs_training_eval": gs_run["launches"]["b3"],
                              "train_gs_app_store_t": apps["launches"]["b3_store"],
                              "train_gs_app_eval": apps["launches"]["b3"],
-                             "render_app": apps["launches_render"]["b3"]},
+                             "render_app": apps["launches_render"]["b3"],
+                             "full_eval_store_t": fe["launches"]["b3_store"],
+                             "full_eval_render": fe["launches"]["b3"],
+                             "gui_frame": gui["launches_frame"]["b3"],
+                             "gui_train_gs_frames": gui["launches_train_gs"]["b3"],
+                             "gui_train_gs_store_t": gui["launches_train_gs"]["b3_store"]},
         "max_abs_err": render["b3_err"],
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,
@@ -2437,7 +2963,9 @@ def main() -> int:
         "replaces": "sixdgs_tpu/ops/rasterizer/pallas_tiles.py:503",
         "launches": gs_run["launches"]["b4"],
         "launches_by_path": {"gs_training": gs_run["launches"]["b4"],
-                             "train_gs_app": apps["launches"]["b4"]},
+                             "train_gs_app": apps["launches"]["b4"],
+                             "full_eval": fe["launches"]["b4"],
+                             "gui_train_gs": gui["launches_train_gs"]["b4"]},
         "max_abs_err": render["b4_err"],
         "ms": b4_ms,
         "plain_ms": b4_plain_ms,
@@ -2462,6 +2990,7 @@ def main() -> int:
     log("pose driver (superpoint): " + json.dumps(sp_driver))
     log(f"B1 / B2 at P={SP_P} d={SP_D}: " + json.dumps({"b1": sp_b1, "b2": sp_b2}))
     log("3DGS apps: " + json.dumps({**apps["timing"], "binning": apps["binning"]}))
+    log("the rest of the CLIs: " + json.dumps(rest))
     log(f"whole script {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": records}))

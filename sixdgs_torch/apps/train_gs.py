@@ -12,8 +12,11 @@ the transmittance store, B4); "tiled" is the tile rasterizer in plain
 PyTorch, "scan" the golden model. Writes ``cfg_args``, ``cameras.json``,
 ``input.ply``, ``metrics.jsonl`` and the PLY snapshots as the JAX CLI does.
 ``--detect_anomaly`` and ``--debug_from`` arm
-``torch.autograd.set_detect_anomaly``, the reference's own switch;
-``--gui`` waits for the GUI server's port (ROADMAP A.4).
+``torch.autograd.set_detect_anomaly``, the reference's own switch.
+``--gui`` serves the SIBR remote viewer on ``--ip``/``--port``: before each
+step it drains the viewer's camera messages, rendering each through
+``render_gui_camera`` (on the card: B5 and B3 without the store) and
+sending the frame back, until a message asks to train on.
 """
 
 from __future__ import annotations
@@ -75,8 +78,7 @@ def build_parser():
         "(default 16 4096 64 256 1024); tune per scene guided by the "
         "binning_* saturation counters in the train metrics")
     parser.add_argument("--gui", action="store_true",
-                        help="serve the SIBR remote viewer during training (not "
-                        "ported yet: ROADMAP A.4)")
+                        help="serve the SIBR remote viewer during training")
     parser.add_argument("--ip", type=str, default="127.0.0.1")
     parser.add_argument("--port", type=int, default=6009)
     parser.add_argument("--platform", type=str, default="cuda", choices=["cpu", "cuda"])
@@ -116,9 +118,6 @@ def prepare_output_dir(model_cfg: ModelConfig, scene_info, train_cams) -> str:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.gui:
-        raise NotImplementedError("--gui: the network GUI server is not ported yet "
-                                  "(ROADMAP A.4)")
     model_cfg = extract_dataclass_args(args, ModelConfig)
     model_cfg.source_path = os.path.abspath(model_cfg.source_path)
     opt_cfg = extract_dataclass_args(args, OptimizationConfig)
@@ -163,7 +162,7 @@ def main(argv=None):
             writer.scalar("test/loss_viewpoint - l1_loss", l1_val, it)
             print(f"\n[ITER {it}] Evaluating test: L1 {l1_val} PSNR {psnr_val}")
 
-    pre_step = None
+    pre_step, gui = None, None
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
     if args.debug_from >= 0:
@@ -172,19 +171,52 @@ def main(argv=None):
             if it - 1 == _debug_from:
                 torch.autograd.set_detect_anomaly(True)
 
-    trainer.run(
-        iterations=opt_cfg.iterations,
-        log_every=args.log_every,
-        save_iterations=save_iterations,
-        model_path=model_path,
-        callback=callback,
-        chunk=args.chunk,
-        rasterizer=args.rasterizer,
-        checkpoint_iterations=args.checkpoint_iterations,
-        first_iteration=first_iteration,
-        pre_step=pre_step,
-        **({"tiers": tuple(args.binning_tiers)} if args.binning_tiers else {}),
-    )
+    if args.gui:
+        from sixdgs_torch.renderer.network_gui import NetworkGUI, image_to_bytes
+        from sixdgs_torch.train.gs_trainer import render_gui_camera
+
+        gui = NetworkGUI(args.ip, args.port)
+        source_abs = os.path.abspath(model_cfg.source_path)
+        _prev_pre_step = pre_step
+
+        def pre_step(it, tr):
+            if _prev_pre_step is not None:
+                _prev_pre_step(it, tr)
+            # drain viewer messages like the reference's train.py:59-90
+            gui.try_connect()
+            while gui.conn is not None:
+                try:
+                    cam, do_training, _, _, keep_alive, scaling = gui.receive()
+                    img_bytes = None
+                    if cam is not None:
+                        img = render_gui_camera(
+                            tr.state.scene, cam, tr.bg, tr.active_sh_degree,
+                            scaling_modifier=scaling,
+                        )
+                        img_bytes = image_to_bytes(img.cpu().numpy())
+                    gui.send(img_bytes, source_abs)
+                    if do_training and (it < opt_cfg.iterations or not keep_alive):
+                        break
+                except Exception:
+                    gui.disconnect()
+
+    try:
+        trainer.run(
+            iterations=opt_cfg.iterations,
+            log_every=args.log_every,
+            save_iterations=save_iterations,
+            model_path=model_path,
+            callback=callback,
+            chunk=args.chunk,
+            rasterizer=args.rasterizer,
+            checkpoint_iterations=args.checkpoint_iterations,
+            first_iteration=first_iteration,
+            pre_step=pre_step,
+            **({"tiers": tuple(args.binning_tiers)} if args.binning_tiers else {}),
+        )
+    finally:
+        if gui is not None:
+            gui.close()
     writer.close()
     print(f"\nTraining complete in {time.time() - t_start:.1f}s.")
     return model_path

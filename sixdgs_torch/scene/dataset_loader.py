@@ -29,9 +29,11 @@ def load_data(args) -> SceneInfo:
             source_path, args.white_background, args.eval
         )
     if os.path.exists(os.path.join(source_path, "reconstruction.nvm")):
-        raise NotImplementedError(
-            "Cambridge Landmarks (reconstruction.nvm) is not ported yet: its reader, "
-            "scene/nvm.py, is ROADMAP A.4")
+        # Cambridge Landmarks: declared but left unimplemented by the
+        # reference (scene/cambridge_loader.py is empty); completed here
+        from sixdgs_torch.scene.nvm import read_cambridge_scene_info
+
+        return read_cambridge_scene_info(source_path, args.eval)
     raise ValueError(f"Could not recognize scene type at {source_path}")
 
 

@@ -20,8 +20,8 @@ from the same point cloud and take the same steps, so:
   PSNR_ATOL, LPIPS to LPIPS_RTOL relative.
 
 Then the port alone: ``--rasterizer auto``, ``--detect_anomaly`` armed (and
-reset here), ``--gui`` raising, and the PNG written and read without
-Pillow equal to Pillow's.
+reset here), ``--gui`` serving a viewer, and the PNG written and read
+without Pillow equal to Pillow's.
 """
 
 import json
@@ -203,10 +203,29 @@ class TestPortAlone:
             res = json.load(fh)["test/ours_2"]
         assert res["LPIPS"] is None and np.isfinite(res["PSNR"])
 
-    def test_gui_raises(self, runs, tmp_path):
-        with pytest.raises(NotImplementedError, match="A.4"):
-            ttrain_gs.main(_train_argv(runs["root"], str(tmp_path / "gui"))
-                           + ["--platform", "cpu", "--gui"])
+    def test_gui_raises(self, runs, tmp_path, monkeypatch):
+        """--gui binds the viewer's port and serves a frame a step (the name
+        is that of the refusal this test pinned before the server was
+        ported; tests/test_torch_network_gui.py holds the frames against
+        the renders)."""
+        from sixdgs_torch.scene.cameras import camera_list_from_infos
+        from sixdgs_torch.scene.dataset_loader import load_data
+        from sixdgs_torch.utils.config import dotdict
+        from tests.test_torch_network_gui import serve_train_gs, viewer_message
+
+        info = load_data(dotdict(source_path=runs["root"], images=None, eval=True,
+                                 white_background=True))
+        cam = camera_list_from_infos(info.test_cameras)[0]
+        messages = [viewer_message(cam), viewer_message(cam, keep_alive=False)]
+        model = str(tmp_path / "gui")
+        frames, renders = serve_train_gs(
+            monkeypatch, _train_argv(runs["root"], model, iterations=2)
+            + ["--platform", "cpu"], messages)
+        assert len(frames) == len(renders) == 2
+        for img_bytes, verify in frames:
+            assert len(img_bytes) == 24 * 24 * 3 and verify == os.path.abspath(runs["root"])
+        assert os.path.exists(os.path.join(model, "point_cloud", "iteration_2",
+                                           "point_cloud.ply"))
 
     def test_png_without_pillow(self, monkeypatch, tmp_path):
         """save_png and read_image through scene.png give Pillow's values."""
