@@ -142,7 +142,25 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      time-limited); one eval_image inside ``utils.profiling.trace``, whose
      trace names B1's four CUDA kernels, and ``time_fn`` of it;
      ``apps.convert.main`` against a stub colmap (the four stages, the
-     move into sparse/0).
+     move into sparse/0);
+ 11. parallel/ at full width, each path twice: NCCL at world size 1 in this
+     process, then gloo at world size 2 in two spawned processes on the
+     same card (a rank that fails or outlives PAR_RANK_TIMEOUT fails the
+     phase). (a) the DP 3DGS step (make_sharded_gs_step, rasterizer
+     "auto") on phase 6's perturbed state, 4 render cameras with phase 5's
+     images as ground truth, 2 steps: gloo-2 against NCCL-1 (loss rtol
+     1e-5, xyz atol 1e-5, xyz_grad_accum rtol 1e-4 atol 1e-6, denom and max
+     radii equal, both ranks' states bitwise equal), no dropped gradient,
+     and B5, B3 with the store and B4 8 launches each at either world size
+     (summed over the ranks); (b) the Gaussian-parallel render of camera 0
+     (make_sharded_render: each rank projects half the scene and
+     composites its band of 408 rows) against render_eval's image (2e-5),
+     B5 and B3 once per rank; (c) the sharded id-module step (DINOv2-S/14,
+     the 384-wide id module, 4 images at 800x800, 32,768 rays) on meshes
+     (1, 2) and (2, 1) and the cached step on (2, 1) against the NCCL-1
+     step (loss rtol 2e-4, parameters atol 1.5e-3 rtol 5e-3, the summed
+     gradients within TRAIN_GRAD_TOL of each one's largest), B1 and B2
+     never launched. Each path's times at both world sizes are logged.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -334,6 +352,17 @@ FULL_EVAL_ITERS = 50
 GUI_ITERS = 8
 GUI_CLIENT_TIMEOUT = 120.0
 GUI_MIN_COVER = 0.01
+# phase 11: parallel/ at full width, each path twice: NCCL at world size 1
+# in the script's process and gloo at world size 2 in two spawned processes
+# on the same card (NCCL does not put two ranks on one GPU). The DP 3DGS
+# step takes PAR_CAMERAS render cameras for PAR_STEPS steps; the render is
+# timed over PAR_RENDER_FRAMES frames; the pose step runs on each mesh of
+# PAR_POSE_MESHES (name, gloo-2 shape, cached features). The gates are the
+# JAX package's tests/test_parallel.py limits, quoted where they are used
+PAR_CAMERAS, PAR_STEPS, PAR_RANKS, PAR_RENDER_FRAMES = 4, 2, 2, 5
+PAR_POSE_MESHES = (("pose_sp", (1, 2), False), ("pose_dp", (2, 1), False),
+                   ("cached_dp", (2, 1), True))
+PAR_RANK_TIMEOUT = 240.0  # seconds for the spawned ranks, start to exit
 # mean_sq_dist_3nn against torch.cdist: the matrix-product form rounds at
 # eps |x|^2 ~ 1e-6 absolute, against squared distances of ~1e-3
 KNN_ATOL, KNN_RTOL = 4e-6, 1e-4
@@ -2429,6 +2458,323 @@ def phase_gs_training(ak, pt, arrays, render, rng):
             "n_steps": n_steps}
 
 
+def same_on_every_rank(t: torch.Tensor) -> bool:
+    """Whether ``t`` is bitwise rank 0's on this rank (a broadcast)."""
+    import torch.distributed as dist
+
+    ref = t.clone()
+    dist.broadcast(ref, 0)
+    return bool(torch.equal(ref, t))
+
+
+def parallel_inputs(scene, render, gs_run, pose) -> dict:
+    """What both runs of phase 11 start from, as CPU tensors: the render
+    scene, phase 6's perturbed start state, PAR_CAMERAS render cameras with
+    their ground truth, phase 6's learning rates, and phase 3's images,
+    rays and weights."""
+    from sixdgs_torch.parallel.gs_sharding import stack_camera_batch
+    from sixdgs_torch.train import gs_trainer as gs
+
+    import dataclasses
+
+    def cpu(params):
+        return {k: v.detach().cpu() for k, v in params.items()}
+
+    tr = gs_run["trainer"]
+    cams = [dataclasses.replace(cam, image=img.cpu().numpy())
+            for cam, img in zip(render["cams"][:PAR_CAMERAS], render["imgs"])]
+    start = gs_run["start_state"].scene
+    return {
+        "scene": cpu(scene.params()), "active": scene.active.cpu(),
+        "start": cpu(start.params()), "start_active": start.active.cpu(),
+        "cams": list(stack_camera_batch(cams, "cpu")),
+        "render_cam": list(gs.camera_arrays(render["cams"][0], "cpu"))[:5],
+        "lrs": gs.lr_dict(tr.opt, tr.spatial_lr_scale, GS_FIRST_IT),
+        "bg": list(RENDER_BG),
+        "images": torch.stack(pose["images"]).cpu(), "masks": torch.stack(pose["masks"]).cpu(),
+        "c2w": torch.stack(pose["c2ws"]).cpu(), "rays": [x.cpu() for x in pose["rays"]],
+        "dino": cpu(pose["dino"].state_dict()), "idm": cpu(pose["id_module"].state_dict()),
+    }
+
+
+def parallel_paths(inp: dict, world: int) -> dict:
+    """parallel/'s three paths in this process's group of ``world`` ranks on
+    the card, each with its launch counts zeroed just before and read just
+    after: (a) PAR_STEPS DP 3DGS steps of the PAR_CAMERAS cameras, (b) the
+    Gaussian-parallel render of camera 0, (c) one sharded id-module step
+    per mesh of PAR_POSE_MESHES (at world size 1 on a (1, 1) mesh, once for
+    the full step and once for the cached one). Rank 0 also returns the
+    arrays the gates compare."""
+    import torch.distributed as dist
+
+    from sixdgs_torch.ops import attention_kernel as ak
+    from sixdgs_torch.ops.rasterizer import pallas_tiles as pt
+    from sixdgs_torch.parallel import gs_sharding, pose_sharding
+    from sixdgs_torch.parallel.mesh import make_mesh
+    from sixdgs_torch.pose import trainer as ttr
+    from sixdgs_torch.pose.dino import DinoViT
+    from sixdgs_torch.pose.modules import init_id_module
+    from sixdgs_torch.rays.engine import Rays
+    from sixdgs_torch.scene.gaussians import GaussianScene
+    from sixdgs_torch.train import gs_trainer as gs
+
+    rank0 = dist.get_rank() == 0
+    bg = torch.tensor(inp["bg"], device="cuda")
+    res = {}
+
+    def cuda(params):
+        return {k: v.cuda() for k, v in params.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # (a) the DP 3DGS step
+    mesh = make_mesh(axis_names=("data",))
+    step = gs_sharding.make_sharded_gs_step(mesh, width=RENDER_W, height=RENDER_H,
+                                            sh_degree=3, rasterizer="auto")
+    cams = gs_sharding.shard_camera_batch(mesh, gs.CameraArrays(*(x.cuda() for x in inp["cams"])))
+    state = gs.init_train_state(GaussianScene(active=inp["start_active"].cuda(),
+                                              max_sh_degree=3, **cuda(inp["start"])))
+    zero_launch_counts(ak, pt)
+    a = {"ms": [], "loss": [], "grad_dropped": [], "cameras": int(cams.view.shape[0])}
+    for _ in range(PAR_STEPS):
+        (state, m), ms = timed(lambda: step(state, cams, bg, inp["lrs"]))
+        a["ms"].append(ms)
+        a["loss"].append(float(m["loss"]))
+        a["grad_dropped"].append(int(m["grad_dropped"]))
+    a["launches"] = launch_counts(ak, pt)
+    arrays = {k: getattr(state.scene, k) for k in ("xyz",)}
+    arrays.update(xyz_grad_accum=state.xyz_grad_accum, denom=state.denom,
+                  max_radii2d=state.max_radii2d)
+    a["replicated"] = same_on_every_rank(torch.cat(
+        [v.reshape(-1).to(torch.float32) for v in state.scene.params().values()]
+        + [v.reshape(-1).to(torch.float32) for v in arrays.values()]))
+    if rank0:
+        a["arrays"] = {k: v.cpu() for k, v in arrays.items()}
+    res["gs"] = a
+    del state, cams, step
+
+    # (b) the sharded render: this rank's band of camera 0
+    mesh = make_mesh(axis_names=("gaussians",))
+    params, active = pose_sharding.shard_scene(mesh, cuda(inp["scene"]),
+                                               inp["active"].cuda())
+    render = pose_sharding.make_sharded_render(mesh, RENDER_W, RENDER_H, 3)
+    cam = gs.CameraArrays(*(x.cuda() for x in inp["render_cam"]))
+    render(params, active, cam, bg)  # warm-up
+    zero_launch_counts(ak, pt)
+    band, _ = timed(lambda: render(params, active, cam, bg))
+    b = {"launches": launch_counts(ak, pt), "band": band.cpu(),
+         "rows": pose_sharding.band_rows(RENDER_H, world, dist.get_rank()),
+         "gaussians": int(active.shape[0]),
+         "ms": statistics.median(timed(lambda: render(params, active, cam, bg))[1]
+                                 for _ in range(PAR_RENDER_FRAMES))}
+    res["render"] = b
+    del params, active
+
+    # (c) the sharded id-module steps
+    dino_model = DinoViT(384, 12, 37 * 37)
+    dino_model.load_state_dict(inp["dino"])
+    dino_model = dino_model.cuda().eval()
+    batch = ttr.PoseBatch(inp["images"].cuda(), inp["masks"].cuda(), inp["c2w"].cuda())
+    rays = Rays(*(x.cuda() for x in inp["rays"]))
+    up = torch.tensor([0.0, 1.0, 0.0], device="cuda")
+    meshes = PAR_POSE_MESHES if world > 1 else (("pose", (1, 1), False),
+                                                ("cached", (1, 1), True))
+    c = {}
+    for name, shape, cached in meshes:
+        mesh = make_mesh(shape=shape)
+        idm = init_id_module(None, feature_dim=384, grid=16, device="cuda")
+        idm.load_state_dict(inp["idm"])
+        opt = ttr.make_adafactor(idm.parameters())
+        if cached:
+            fb = ttr.FeatureBatch(*ttr._features(dino_model, batch.images, batch.masks,
+                                                 "dino"), batch.c2w)
+            fb, r = pose_sharding.shard_feature_inputs(mesh, fb, rays)
+            step = pose_sharding.make_sharded_pose_step_cached(mesh)
+            run = lambda: step(idm, opt, fb, r, up)  # noqa: E731
+        else:
+            bt, r = pose_sharding.shard_pose_inputs(mesh, batch, rays)
+            step = pose_sharding.make_sharded_pose_step(mesh)
+            run = lambda: step(idm, opt, dino_model, bt, r, up)  # noqa: E731
+        zero_launch_counts(ak, pt)
+        aux, ms = timed(run)
+        names = [n for n, _ in idm.named_parameters()]
+        flat = torch.cat([p.detach().reshape(-1) for p in idm.parameters()])
+        one = {"ms": ms, "loss": float(aux["loss"]), "n_nan": int(aux["n_nan"]),
+               "launches": launch_counts(ak, pt), "replicated": same_on_every_rank(flat)}
+        if rank0:
+            one["params"] = {n: p.detach().cpu() for n, p in idm.named_parameters()}
+            one["grads"] = {n: p.grad.cpu() for n, p in zip(names, idm.parameters())}
+        one["steady_ms"] = timed(run)[1]  # a second step, after the first's warm-up
+        c[name] = one
+    res["pose"] = c
+    return res
+
+
+def parallel_rank(rank: int, world: int, workdir: str) -> None:
+    """One gloo rank of phase 11, in a spawned process on the card."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/init", rank=rank,
+                            world_size=world)
+    res = parallel_paths(torch.load(os.path.join(workdir, "inputs.pt")), world)
+    torch.save(res, os.path.join(workdir, f"out{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def spawn_gloo_ranks(workdir: str) -> list:
+    """PAR_RANKS gloo ranks in spawned processes, all stopped within
+    PAR_RANK_TIMEOUT; each rank's results, or an error."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=parallel_rank, args=(r, PAR_RANKS, workdir))
+             for r in range(PAR_RANKS)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + PAR_RANK_TIMEOUT
+    try:
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * PAR_RANKS:
+        raise AssertionError(f"phase 11 gloo ranks exited with {codes} (None: killed "
+                             f"at the {PAR_RANK_TIMEOUT} s limit)")
+    return [torch.load(os.path.join(workdir, f"out{r}.pt")) for r in range(PAR_RANKS)]
+
+
+def phase_parallel(scene, render, gs_run, pose) -> dict:
+    """Phase 11: parallel/ at full width, NCCL at world size 1 here, then
+    gloo at world size 2 in spawned processes on the same card, held to each
+    other and to render_eval."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        torch.save(parallel_inputs(scene, render, gs_run, pose),
+                   os.path.join(workdir, "inputs.pt"))
+        inp = torch.load(os.path.join(workdir, "inputs.pt"))
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                rank=0, world_size=1)
+        try:
+            one = parallel_paths(inp, 1)
+        finally:
+            dist.destroy_process_group()
+        del inp
+        t_gloo = time.perf_counter()
+        ranks = spawn_gloo_ranks(workdir)
+        gloo_s = time.perf_counter() - t_gloo
+    two = ranks[0]
+
+    # (a) the DP 3DGS step
+    a1, a2 = one["gs"], two["gs"]
+    launches = {k: sum(r["gs"]["launches"][k] for r in ranks) for k in a2["launches"]}
+    n = PAR_CAMERAS * PAR_STEPS
+    want = {"b1": 0, "b2": 0, "b5": n, "b3": 0, "b3_store": n, "b4": n}
+    log(f"phase 11 (a) DP 3DGS step, {PAR_CAMERAS} cameras at {RENDER_W}x{RENDER_H}, "
+        f"{PAR_STEPS} steps: NCCL-1 loss {a1['loss']} step ms {a1['ms']}; gloo-2 loss "
+        f"{a2['loss']} step ms {[r['gs']['ms'] for r in ranks]} (cameras per rank "
+        f"{[r['gs']['cameras'] for r in ranks]}); launches NCCL-1 "
+        f"{json.dumps(a1['launches'])}, gloo-2 summed over ranks {json.dumps(launches)}")
+    if a1["launches"] != want or launches != want:
+        raise AssertionError(f"sharded 3DGS step launches {a1['launches']} / {launches}, "
+                             f"expected {want}")
+    if any(r["grad_dropped"] != [0] * PAR_STEPS for r in (a1, *(x["gs"] for x in ranks))):
+        raise AssertionError("a sharded 3DGS step dropped its raster gradients")
+    if not all(r["gs"]["replicated"] for r in ranks):
+        raise AssertionError("the gloo ranks' 3DGS states differ")
+    errs = {"loss_rel": max(abs(x - y) / abs(y) for x, y in zip(a2["loss"], a1["loss"]))}
+    g, w = a2["arrays"], a1["arrays"]
+    errs["xyz"] = (g["xyz"] - w["xyz"]).abs().max().item()
+    acc = (g["xyz_grad_accum"] - w["xyz_grad_accum"]).abs()
+    errs["accum_excess"] = (acc - 1e-4 * w["xyz_grad_accum"].abs()).max().item()
+    log(f"  gloo-2 vs NCCL-1: {json.dumps(errs)} (limits loss rtol 1e-5, xyz atol 1e-5, "
+        f"accum rtol 1e-4 atol 1e-6); denom and max radii equal: "
+        f"{torch.equal(g['denom'], w['denom'])}, "
+        f"{torch.equal(g['max_radii2d'], w['max_radii2d'])}")
+    if not (all(map(math.isfinite, a2["loss"])) and errs["loss_rel"] <= 1e-5
+            and errs["xyz"] <= 1e-5 and errs["accum_excess"] <= 1e-6
+            and torch.equal(g["denom"], w["denom"])
+            and torch.equal(g["max_radii2d"], w["max_radii2d"])):
+        raise AssertionError(f"sharded 3DGS step, gloo-2 vs NCCL-1: {errs}")
+
+    # (b) the sharded render
+    ref = render["imgs"][0].cpu()
+    img = torch.cat([r["render"]["band"] for r in ranks], dim=1)
+    b_err = {"gloo2": (img - ref).abs().max().item(),
+             "nccl1": (one["render"]["band"] - ref).abs().max().item()}
+    log(f"phase 11 (b) sharded render of camera 0: {one['render']['gaussians']} Gaussians "
+        f"and {RENDER_H} rows at world size 1, per rank "
+        f"{[r['render']['gaussians'] for r in ranks]} Gaussians, rows "
+        f"{[r['render']['rows'] for r in ranks]}; ms per frame NCCL-1 "
+        f"{one['render']['ms']:.3f}, gloo-2 {[r['render']['ms'] for r in ranks]}; launches "
+        f"per rank {[r['render']['launches'] for r in ranks]}; max abs err vs render_eval "
+        f"{json.dumps(b_err)} (limit 2e-5)")
+    want = {"b1": 0, "b2": 0, "b5": 1, "b3": 1, "b3_store": 0, "b4": 0}
+    if any(r["render"]["launches"] != want for r in (one, *ranks)):
+        raise AssertionError("sharded render launches")
+    if not (img.shape == ref.shape and max(b_err.values()) <= 2e-5):
+        raise AssertionError(f"sharded render off render_eval: {b_err}")
+
+    # (c) the sharded id-module steps
+    c_err = {}
+    for name, shape, cached in PAR_POSE_MESHES:
+        got, want = two["pose"][name], one["pose"]["cached" if cached else "pose"]
+        loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+        p_excess = max(((got["params"][k] - v).abs() - 5e-3 * v.abs()).max().item()
+                       for k, v in want["params"].items())
+        top = max(v.abs().max().item() for v in want["grads"].values())
+        g_err = max(((got["grads"][k] - v).abs().max().item()
+                     / (top if k in ZERO_GRAD_PARAMS else v.abs().max().item()))
+                    for k, v in want["grads"].items())
+        c_err[name] = {"mesh": shape, "loss": got["loss"], "loss_rel": loss_rel,
+                       "param_excess": p_excess, "grad_rel": g_err,
+                       "ms": [r["pose"][name]["ms"] for r in ranks],
+                       "steady_ms": [r["pose"][name]["steady_ms"] for r in ranks]}
+        launches = [r["pose"][name]["launches"] for r in ranks] + [
+            one["pose"]["cached" if cached else "pose"]["launches"]]
+        if any(x["b1"] or x["b2"] for x in launches):
+            raise AssertionError(f"{name}: B1/B2 launched {launches}")
+        if not (math.isfinite(got["loss"]) and loss_rel <= 2e-4 and p_excess <= 1.5e-3
+                and g_err <= TRAIN_GRAD_TOL and got["n_nan"] == 0
+                and all(r["pose"][name]["replicated"] for r in ranks)):
+            raise AssertionError(f"{name}: gloo-2 vs NCCL-1 {c_err[name]}")
+    log(f"phase 11 (c) sharded id-module step, 4 images at {IMAGE_HW}x{IMAGE_HW}, 32,768 "
+        f"rays: NCCL-1 loss {one['pose']['pose']['loss']} (ms, first and second step: "
+        f"{one['pose']['pose']['ms']:.1f}, {one['pose']['pose']['steady_ms']:.1f}), cached "
+        f"{one['pose']['cached']['loss']} ({one['pose']['cached']['ms']:.1f}, "
+        f"{one['pose']['cached']['steady_ms']:.1f}); gloo-2 " + json.dumps(c_err) + " (limits loss rtol 2e-4, params atol 1.5e-3 "
+        f"rtol 5e-3, gradients {TRAIN_GRAD_TOL} of each one's largest)")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 11 parallel: ok ({wall:.1f} s, of it {gloo_s:.1f} s for the gloo ranks)")
+    return {"gs_launches": {k: sum(r["gs"]["launches"][k] for r in ranks)
+                            for k in ("b5", "b3_store", "b4")},
+            "gs_launches_nccl1": a1["launches"],
+            "render_launches": {k: sum(r["render"]["launches"][k] for r in ranks)
+                                for k in ("b5", "b3")},
+            "render_launches_nccl1": one["render"]["launches"],
+            "timing": {"gs_step_ms_nccl1": a1["ms"], "gs_step_ms_gloo2":
+                       [r["gs"]["ms"] for r in ranks],
+                       "render_ms_nccl1": one["render"]["ms"],
+                       "render_ms_gloo2": [r["render"]["ms"] for r in ranks],
+                       "pose_ms_nccl1": {k: [v["ms"], v["steady_ms"]]
+                                         for k, v in one["pose"].items()},
+                       "pose_ms_gloo2": {k: [v["ms"], v["steady_ms"]]
+                                         for k, v in c_err.items()},
+                       "wall_s": wall, "gloo_s": gloo_s},
+            "errors": {"gs": errs, "render": b_err, "pose": c_err}}
+
+
 def ptxas_report(build, name: str, defines: tuple = ()) -> list:
     """Registers, spills and static shared memory of each kernel of
     csrc/<name>.cu (built with ``defines``), from the ptxas report that the
@@ -2848,6 +3194,11 @@ def main() -> int:
     shutil.rmtree(os.path.dirname(data))
     cl, fe, gui = rest["cambridge"], rest["full_eval"], rest["gui"]
 
+    # 11. parallel/ at full width: NCCL at world size 1, gloo at world size 2
+    par = phase_parallel(scene, render, gs_run,
+                         {"images": images, "masks": masks, "c2ws": c2ws, "rays": rays,
+                          "dino": dino_model, "id_module": id_module})
+
     records = [{
         "name": "B1 attention_scores_fused (_fwd_kernel_train; 4 CUDA kernels per launch, "
                 "reassociated, mma.sync in bf16 pieces, one logits tile with B2)",
@@ -2912,7 +3263,12 @@ def main() -> int:
                              "render_app": apps["launches_render"]["b5"],
                              "full_eval": fe["launches"]["b5"],
                              "gui_frame": gui["launches_frame"]["b5"],
-                             "gui_train_gs": gui["launches_train_gs"]["b5"]},
+                             "gui_train_gs": gui["launches_train_gs"]["b5"],
+                             # phase 11: summed over the gloo-2 ranks, and at NCCL-1
+                             "sharded_gs_step": par["gs_launches"]["b5"],
+                             "sharded_gs_step_nccl1": par["gs_launches_nccl1"]["b5"],
+                             "sharded_render": par["render_launches"]["b5"],
+                             "sharded_render_nccl1": par["render_launches_nccl1"]["b5"]},
         "max_abs_err": render["b5_err"],
         "ms": b5_ms,
         "plain_ms": b5_plain_ms,
@@ -2940,7 +3296,12 @@ def main() -> int:
                              "full_eval_render": fe["launches"]["b3"],
                              "gui_frame": gui["launches_frame"]["b3"],
                              "gui_train_gs_frames": gui["launches_train_gs"]["b3"],
-                             "gui_train_gs_store_t": gui["launches_train_gs"]["b3_store"]},
+                             "gui_train_gs_store_t": gui["launches_train_gs"]["b3_store"],
+                             "sharded_gs_step_store_t": par["gs_launches"]["b3_store"],
+                             "sharded_gs_step_store_t_nccl1":
+                                 par["gs_launches_nccl1"]["b3_store"],
+                             "sharded_render": par["render_launches"]["b3"],
+                             "sharded_render_nccl1": par["render_launches_nccl1"]["b3"]},
         "max_abs_err": render["b3_err"],
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,
@@ -2965,7 +3326,9 @@ def main() -> int:
         "launches_by_path": {"gs_training": gs_run["launches"]["b4"],
                              "train_gs_app": apps["launches"]["b4"],
                              "full_eval": fe["launches"]["b4"],
-                             "gui_train_gs": gui["launches_train_gs"]["b4"]},
+                             "gui_train_gs": gui["launches_train_gs"]["b4"],
+                             "sharded_gs_step": par["gs_launches"]["b4"],
+                             "sharded_gs_step_nccl1": par["gs_launches_nccl1"]["b4"]},
         "max_abs_err": render["b4_err"],
         "ms": b4_ms,
         "plain_ms": b4_plain_ms,
@@ -2991,6 +3354,8 @@ def main() -> int:
     log(f"B1 / B2 at P={SP_P} d={SP_D}: " + json.dumps({"b1": sp_b1, "b2": sp_b2}))
     log("3DGS apps: " + json.dumps({**apps["timing"], "binning": apps["binning"]}))
     log("the rest of the CLIs: " + json.dumps(rest))
+    log("parallel/ (phase 11): " + json.dumps({"timing": par["timing"],
+                                                "errors": par["errors"]}))
     log(f"whole script {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": records}))

@@ -6,7 +6,7 @@ scene's rendering and training, on an NVIDIA Hopper GPU. It mirrors the JAX pack
 plain tensor math is PyTorch, and each TPU kernel on the ported path is a
 kernel written by hand for sm_90a (``csrc/``), built with nvcc at first use.
 
-Layout (every module of the JAX package but parallel/):
+Layout (every module of the JAX package):
   ops/      SH, quaternions and covariances, cameras, sym-eig 3x3, LS
             lines, fused attention scores (forward B1 and backward B2),
             SSIM / PSNR / L1, exact kNN, rasterizer/ (projection, golden
@@ -27,6 +27,9 @@ Layout (every module of the JAX package but parallel/):
             per-group Adam, densification, checkpoints
   utils/    configs and cfg_args, metrics writer, the gsio loader,
             profiler traces and step timers
+  parallel/ torch.distributed: the device mesh, the DP x SP id-module step,
+            the Gaussian-parallel render, the DP 3DGS step (gloo ranks on
+            the CPU in the tests, NCCL or gloo on the card)
   weights   the JAX package's param dicts <-> the port's modules
 
 Entry points run on "cuda" unless the caller passes ``device="cpu"``.
@@ -54,6 +57,7 @@ def __getattr__(name):
         "render_eval": ("sixdgs_torch.train.gs_trainer", "render_eval"),
         "GSTrainer": ("sixdgs_torch.train.gs_trainer", "GSTrainer"),
         "PoseTrainer": ("sixdgs_torch.pose.trainer", "PoseTrainer"),
+        "make_mesh": ("sixdgs_torch.parallel.mesh", "make_mesh"),
     }
     if name in api:
         module, attr = api[name]

@@ -164,28 +164,20 @@ def _project_params(params, active, cam: CameraArrays, width, height, sh_degree)
                              cam.tan_fovy, sh=sh, sh_degree=sh_degree, active=active)
 
 
-def _render_params(params, active, cam: CameraArrays, width, height, sh_degree,
-                   bg, chunk: int = 256, rasterizer: str = "auto",
-                   tiers: tuple = DEFAULT_TIERS, nc_pairs: int = 0,
-                   with_stats: bool = False, means2d_offset=None):
-    """Project the scene's parameters through ``cam`` and rasterize:
-    (img [3, H, W], proj), and with ``with_stats`` the rasterizer's budget
-    telemetry as a third item (None off the "pallas" path).
+def _rasterize(proj, width, height, bg, chunk: int = 256, rasterizer: str = "auto",
+               tiers: tuple = DEFAULT_TIERS, nc_pairs: int = 0, with_stats: bool = False):
+    """Rasterize projected Gaussians: (img [3, H, W], stats), ``stats`` the
+    rasterizer's budget telemetry with ``with_stats`` on the "pallas" path,
+    else None.
 
     ``rasterizer``: "pallas" (the tile rasterizer on the CUDA kernels;
     "auto" resolves to it), "tiled" (the tile rasterizer in plain PyTorch)
-    or "scan" (the golden model). ``means2d_offset``
-    [P, 2] is added to the projected means: the gradient with respect to a
-    zero offset is the screen-space position gradient that densification
-    accumulates."""
+    or "scan" (the golden model)."""
     rasterizer = resolve_rasterizer(rasterizer)
     if rasterizer not in ("pallas", "tiled", "scan"):
         raise ValueError("rasterizer must be 'auto', 'pallas', 'tiled' or 'scan', got "
                          f"{rasterizer!r}")
     t_max, mid_k, t_max_mid, overflow_k, t_max_big = tiers
-    proj = _project_params(params, active, cam, width, height, sh_degree)
-    if means2d_offset is not None:
-        proj = proj._replace(means2d=proj.means2d + means2d_offset)
     stats = None
     if rasterizer == "pallas":
         img = rasterize_pallas(proj, width, height, bg, t_max=t_max, mid_k=mid_k,
@@ -200,6 +192,24 @@ def _render_params(params, active, cam: CameraArrays, width, height, sh_degree,
                               t_max_big=t_max_big)
     else:
         img = rasterize_scan(proj, width, height, bg, chunk=chunk)
+    return img, stats
+
+
+def _render_params(params, active, cam: CameraArrays, width, height, sh_degree,
+                   bg, chunk: int = 256, rasterizer: str = "auto",
+                   tiers: tuple = DEFAULT_TIERS, nc_pairs: int = 0,
+                   with_stats: bool = False, means2d_offset=None):
+    """Project the scene's parameters through ``cam`` and rasterize
+    (``_rasterize``): (img [3, H, W], proj), and with ``with_stats`` the
+    rasterizer's budget telemetry as a third item. ``means2d_offset``
+    [P, 2] is added to the projected means: the gradient with respect to a
+    zero offset is the screen-space position gradient that densification
+    accumulates."""
+    proj = _project_params(params, active, cam, width, height, sh_degree)
+    if means2d_offset is not None:
+        proj = proj._replace(means2d=proj.means2d + means2d_offset)
+    img, stats = _rasterize(proj, width, height, bg, chunk, rasterizer, tiers, nc_pairs,
+                            with_stats)
     if with_stats:
         return img, proj, stats
     return img, proj
