@@ -160,7 +160,30 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      (1, 2) and (2, 1) and the cached step on (2, 1) against the NCCL-1
      step (loss rtol 2e-4, parameters atol 1.5e-3 rtol 5e-3, the summed
      gradients within TRAIN_GRAD_TOL of each one's largest), B1 and B2
-     never launched. Each path's times at both world sizes are logged.
+     never launched. Each path's times at both world sizes are logged;
+ 12. the workflow tools (sixdgs_torch/tools/) through their main, each cut
+     in depth: (a) pose_accuracy_experiment --fused_attention at 100
+     iterations, held to tests/test_pose_e2e.py's 100-iteration assertions
+     (B1 824, B2 800; B5 and B3 8 for the ring renders); (b)
+     quality_workflow at 400x400, 1,000 iterations from a sparse init of
+     500 points with the opacity reset at 800 (two adaptations, five
+     densifications, a reset and an SH step, counted from inside the run),
+     held to a PSNR floor read against full runs of the same configuration,
+     a Gaussian count that changed and finite logged losses (B5, B3 with the
+     store and B4 once per step, B5 and B3 once per render); (c)
+     pose_stage_artifact --fused_attention at 300 3DGS and 30 pose
+     iterations per backbone, held to 8 results each with finite errors
+     and exact launches (B1 1,008 (30 steps of 32, one validation of 32
+     views, two evaluations of 8) and B2 960 for DINO, four times that for
+     SuperPoint), with each driver call's step time and peak host RSS and
+     device memory logged. After the counted runs, the kernels on the
+     tools' own inputs against their plain versions: one training batch of
+     (a)'s trained module (features 78 wide, which B1 and B2 take
+     zero-padded to 384): scores, batch loss and gradients, fused against
+     the plain scorer (phases 3 and 4's limits); on (b)'s first 400x400 GT
+     view and its trained state, B5, B3, B3 with the store and B4 (phase
+     5's limits), and one step from the trained state through the kernels
+     against a plain twin (phase 6's gradient limit).
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -178,6 +201,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -363,6 +387,41 @@ PAR_CAMERAS, PAR_STEPS, PAR_RANKS, PAR_RENDER_FRAMES = 4, 2, 2, 5
 PAR_POSE_MESHES = (("pose_sp", (1, 2), False), ("pose_dp", (2, 1), False),
                    ("cached_dp", (2, 1), True))
 PAR_RANK_TIMEOUT = 240.0  # seconds for the spawned ranks, start to exit
+# phase 12: the workflow tools (sixdgs_torch/tools/) through their main, at
+# a cut depth. The accuracy experiment at 100 iterations with the fused
+# scorer, held to tests/test_pose_e2e.py's 100-iteration assertions (the
+# relative ones, and the pins t_err < 0.95, a_err < 45 deg, recall > 0.30,
+# calibrated at ~0.80 / ~28 / ~0.42): its ring is 8 views of 64x64 and its
+# batch 8, so B1 100 x 8 + 3 x 8 (three evaluations) and B2 100 x 8
+TOOLS_ACC_ITERS, TOOLS_ACC_VIEWS, TOOLS_ACC_BATCH = 100, 8, 8
+# the quality workflow at 400x400 cut from 3,000 to 1,000 iterations, from a
+# sparse init of 500 of the 3,000 GT means, with the opacity reset moved from
+# 3,000 to 800: one run crosses the adaptations at 500 and 1,000, the
+# densifications at 600-1,000 (5), the reset at 800 and the SH step at
+# 1,000 (workflow_depth.py runs the same arguments as quality_cut)
+TOOLS_QW_ITERS, TOOLS_QW_INIT, TOOLS_QW_RESET = 1000, 500, 800
+TOOLS_QW_ARGS = ["--iterations", str(TOOLS_QW_ITERS), "--n_init", str(TOOLS_QW_INIT),
+                 "--extra_train_args", f"--opacity_reset_interval {TOOLS_QW_RESET}"]
+TOOLS_QW_TRAIN, TOOLS_QW_TEST = 28, 6
+TOOLS_QW_DENSIFY = 5
+# held-out PSNR floor of the cut run. Every run of this configuration on an
+# H100 (700 W), in workflow_depth.py and in this phase on several machines,
+# read 19.94 dB (PERF.md §6), against 27.6-28.5 for the tool's full
+# 3,000 iterations from the whole cloud. The floor sits
+# TOOLS_QW_PSNR_MARGIN below the cut run's reading: room for another
+# card, driver or torch to reorder float sums along 1,000 steps; a drop
+# past it is a regression of the trainer, not noise
+TOOLS_QW_PSNR_CARD = 19.94
+TOOLS_QW_PSNR_MARGIN = 1.5
+# the pose stage cut to 300 3DGS iterations and 30 pose iterations per
+# backbone (24 train, 8 test views at 400x400; batch 32; B1 once per image
+# of a step and per evaluated image, twice evaluated; SuperPoint 4 launches
+# a call)
+TOOLS_PS_GS_ITERS, TOOLS_PS_POSE_ITERS = 300, 30
+TOOLS_PS_TRAIN, TOOLS_PS_TEST, TOOLS_PS_BATCH = 24, 8, 32
+# host RSS sampling period of phase 12's memory windows (and
+# workflow_depth.py's): a pose step takes ~100 ms or more
+RSS_SAMPLE_S = 0.1
 # mean_sq_dist_3nn against torch.cdist: the matrix-product form rounds at
 # eps |x|^2 ~ 1e-6 absolute, against squared distances of ~1e-3
 KNN_ATOL, KNN_RTOL = 4e-6, 1e-4
@@ -1817,15 +1876,7 @@ def phase_training(ak, scene, dino_model, id_module, rng):
     log(f"first step fused vs plain: loss {f_loss:.8e} vs {p_loss:.8e} (rel {rel:.2e})")
     if not rel <= TRAIN_LOSS_TOL:
         raise AssertionError(f"first-step loss differs by {rel} relative")
-    top = max(g.abs().max().item() for g in plain_first["grads"].values())
-    worst = 0.0
-    for name, g in plain_first["grads"].items():
-        err = (first["grads"][name] - g).abs().max().item()
-        scale = top if name in ZERO_GRAD_PARAMS else g.abs().max().item()
-        worst = max(worst, err / scale)
-        if not err <= TRAIN_GRAD_TOL * scale:
-            raise AssertionError(f"first-step gradient of {name}: {err} > "
-                                 f"{TRAIN_GRAD_TOL} * {scale}")
+    worst = id_grad_gate("first-step", first["grads"], plain_first["grads"])
     log(f"first step fused vs plain gradients: worst err / scale {worst:.2e} "
         f"over {len(plain_first['grads'])} parameters")
 
@@ -2775,6 +2826,481 @@ def phase_parallel(scene, render, gs_run, pose) -> dict:
             "errors": {"gs": errs, "render": b_err, "pose": c_err}}
 
 
+def rss_bytes() -> int:
+    """This process's resident set (VmRSS) in bytes."""
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def gib(n: float) -> float:
+    return n / 2**30
+
+
+class Peaks:
+    """Peak host RSS (VmRSS sampled every RSS_SAMPLE_S) and peak device
+    memory of nested windows of this process: each window's peak covers
+    its whole life, although the device's peak counter is reset whenever a
+    window opens."""
+
+    def __init__(self):
+        self.rss, self.dev = {}, {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    def _loop(self):
+        while not self._stop.wait(RSS_SAMPLE_S):
+            now = rss_bytes()
+            with self._lock:
+                for k in self.rss:
+                    self.rss[k] = max(self.rss[k], now)
+
+    def _fold(self) -> None:
+        m = torch.cuda.max_memory_allocated()
+        for k in self.dev:
+            self.dev[k] = max(self.dev[k], m)
+
+    def open(self, name: str) -> None:
+        torch.cuda.synchronize()
+        self._fold()
+        torch.cuda.reset_peak_memory_stats()
+        self.dev[name] = torch.cuda.memory_allocated()
+        with self._lock:
+            self.rss[name] = rss_bytes()
+
+    def close(self, name: str):
+        """(peak RSS bytes, peak device bytes) of the window."""
+        torch.cuda.synchronize()
+        self._fold()
+        with self._lock:
+            rss = max(self.rss.pop(name), rss_bytes())
+        return rss, self.dev.pop(name)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+class ToolObserver:
+    """What a workflow tool's run costs, read from inside it. Within the
+    block every call of ``apps.pose_eval.main`` and ``apps.train_gs.main``
+    is recorded in ``calls``: its argv, wall, peak host RSS and device
+    memory, the launches of the counted kernels (``counts``, a function
+    returning launch counts, when given), the id-module training inside it
+    (PoseTrainer.run: steps, seconds, ms a step) and its ray renewals
+    (PoseTrainer._regen_rays: host RSS, device memory allocated and seconds
+    at each; first, last and max). ``trains`` holds every training run of
+    the block, ``trainer`` the last PoseTrainer that ran. Used by phase 12
+    and by workflow_depth.py."""
+
+    def __init__(self, peaks: Peaks, counts=None):
+        self.peaks, self.counts = peaks, counts
+        self.calls, self.trains, self.renewals = [], [], []
+        self.trainer = None
+
+    def train_summary(self, start: int = 0) -> dict:
+        steps = sum(n for n, _ in self.trains[start:])
+        secs = sum(s for _, s in self.trains[start:])
+        return {"train_steps": steps, "train_s": secs,
+                "train_ms_per_step": 1e3 * secs / steps} if steps else {}
+
+    def _app(self, kind, fn):
+        def wrapped(argv=None):
+            self.peaks.open(kind)
+            self.renewals.clear()
+            first_train = len(self.trains)
+            before = self.counts() if self.counts else None
+            t0 = time.perf_counter()
+            try:
+                return fn(argv)
+            finally:
+                rss, dev = self.peaks.close(kind)
+                rec = {"call": kind, "argv": argv, "wall_s": time.perf_counter() - t0,
+                       "peak_rss_gib": gib(rss), "peak_device_gib": gib(dev),
+                       **self.train_summary(first_train)}
+                if before is not None:
+                    after = self.counts()
+                    rec["launches"] = {k: after[k] - before[k] for k in after}
+                if self.renewals:
+                    rss = [r[0] for r in self.renewals]
+                    dev = [r[1] for r in self.renewals]
+                    rec["renewals"] = {
+                        "count": len(self.renewals),
+                        "ms_mean": 1e3 * sum(r[2] for r in self.renewals)
+                        / len(self.renewals),
+                        "rss_gib_first_last_max": [gib(rss[0]), gib(rss[-1]), gib(max(rss))],
+                        "device_gib_first_last_max": [gib(dev[0]), gib(dev[-1]),
+                                                      gib(max(dev))]}
+                self.calls.append(rec)
+        return wrapped
+
+    def __enter__(self):
+        from sixdgs_torch.apps import pose_eval, train_gs
+        from sixdgs_torch.pose import trainer
+
+        cls = trainer.PoseTrainer
+        self._saved = [(pose_eval, "main", pose_eval.main), (train_gs, "main", train_gs.main),
+                       (cls, "run", cls.run), (cls, "_regen_rays", cls._regen_rays)]
+        run, regen, obs = cls.run, cls._regen_rays, self
+
+        def timed_run(tr, n_iterations=None, start_iteration=0, **kw):
+            obs.trainer = tr
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = run(tr, n_iterations, start_iteration, **kw)
+            torch.cuda.synchronize()
+            n = n_iterations if n_iterations is not None else tr.cfg.n_iterations
+            obs.trains.append((n - start_iteration, time.perf_counter() - t))
+            return out
+
+        def timed_regen(tr):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            regen(tr)
+            torch.cuda.synchronize()
+            obs.renewals.append((rss_bytes(), torch.cuda.memory_allocated(),
+                                 time.perf_counter() - t))
+
+        pose_eval.main = self._app("pose_eval", pose_eval.main)
+        train_gs.main = self._app("train_gs", train_gs.main)
+        cls.run, cls._regen_rays = timed_run, timed_regen
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+
+
+def id_grad_gate(label: str, got: dict, want: dict) -> float:
+    """The id module's gradients through the fused scorer (``got``) against
+    the plain scorer's (``want``): each parameter's within TRAIN_GRAD_TOL
+    of its own largest magnitude (ZERO_GRAD_PARAMS: of the module's
+    largest); returns the worst ratio."""
+    top = max(g.abs().max().item() for g in want.values())
+    worst = 0.0
+    for name, g in want.items():
+        err = (got[name] - g).abs().max().item()
+        scale = top if name in ZERO_GRAD_PARAMS else g.abs().max().item()
+        worst = max(worst, err / scale)
+        if not err <= TRAIN_GRAD_TOL * scale:
+            raise AssertionError(f"{label} gradient of {name}: {err} > "
+                                 f"{TRAIN_GRAD_TOL} * {scale}")
+    return worst
+
+
+def accuracy_batch_check(trainer) -> dict:
+    """One training batch of the accuracy tool's trained id module (its
+    64-wide features, which B1 and B2 take zero-padded to 384) and its
+    current rays, on the card: each image's scores through the fused
+    wrapper against the plain scorer (PIPELINE_TOL of the largest, as phase
+    3), and the batch loss and the module's gradients, the VJP of those
+    scores, fused against plain (TRAIN_LOSS_TOL, TRAIN_GRAD_TOL, as phase
+    4)."""
+    from sixdgs_torch.pose.id_module import score_image_cached
+    from sixdgs_torch.pose.trainer import batch_loss_cached
+
+    batch, rays, module = trainer._sample_batch(), trainer.rays, trainer.id_module
+    score_err = 0.0
+    with torch.no_grad():
+        for b in range(batch.c2w.shape[0]):
+            args = (module, batch.feats_pe[b], batch.patch_mask[b], batch.fmap[b], rays)
+            got = score_image_cached(*args, fused_attention=True).scores
+            want = score_image_cached(*args, fused_attention=False).scores
+            err, scale = (got - want).abs().max().item(), want.abs().max().item()
+            score_err = max(score_err, err / scale)
+            if not err <= PIPELINE_TOL * scale:
+                raise AssertionError(f"accuracy batch image {b}: fused scores off the plain "
+                                     f"scorer by {err} (max {scale})")
+
+    def loss_grads(fused: bool):
+        module.zero_grad(set_to_none=True)
+        loss, _ = batch_loss_cached(module, batch, rays, trainer.model_up, fused)
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().clone() for n, p in module.named_parameters()}
+
+    (f_loss, f_grads), (p_loss, p_grads) = loss_grads(True), loss_grads(False)
+    module.zero_grad(set_to_none=True)
+    rel = abs(f_loss - p_loss) / abs(p_loss)
+    if not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"accuracy batch loss fused {f_loss} vs plain {p_loss}")
+    worst = id_grad_gate("accuracy batch", f_grads, p_grads)
+    return {"images": int(batch.c2w.shape[0]), "patches": int(batch.feats_pe.shape[1]),
+            "width": int(batch.feats_pe.shape[2]), "rays": int(rays.valid.numel()),
+            "score_err_rel": score_err, "loss_rel": rel, "grad_err_rel": worst}
+
+
+def tools_accuracy(ak, pt) -> dict:
+    """Phase 12 (a): tools.pose_accuracy_experiment through its main, fused,
+    at TOOLS_ACC_ITERS iterations, held to the JAX test's assertions; then
+    one batch of its trained module fused against plain."""
+    from sixdgs_torch.tools import pose_accuracy_experiment
+
+    peaks = Peaks()
+    try:
+        with ToolObserver(peaks) as obs:
+            torch.cuda.synchronize()
+            zero_launch_counts(ak, pt)
+            t0 = time.perf_counter()
+            out = pose_accuracy_experiment.main(["--iterations", str(TOOLS_ACC_ITERS),
+                                                 "--fused_attention"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts(ak, pt)
+    finally:
+        peaks.stop()
+    n = TOOLS_ACC_VIEWS
+    want = {"b1": TOOLS_ACC_ITERS * TOOLS_ACC_BATCH + 3 * n,
+            "b2": TOOLS_ACC_ITERS * TOOLS_ACC_BATCH, "b5": n, "b3": n, "b3_store": 0, "b4": 0}
+    t, a, r = out["value"], out["angular_error_deg"], out["recall_at_100"]
+    u = out["untrained"]
+    log(f"phase 12 (a) pose_accuracy_experiment, {TOOLS_ACC_ITERS} iterations, fused: "
+        f"t_err {t} a_err {a} recall {r} (untrained {u['t_err']} / {u['a_err']} / "
+        f"{u['recall']}; target-score solve {out['target_score_solve_t_err']}); wall "
+        f"{wall:.2f} s; training {json.dumps(obs.train_summary())}; launches "
+        f"{json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(f"accuracy tool launches {launches}, expected {want}")
+    checks = {"t_err < 0.6 untrained": t < 0.6 * u["t_err"],
+              "a_err < 0.6 untrained": a < 0.6 * u["a_err"],
+              "recall > 0.15 > untrained": r > 0.15 > u["recall"],
+              "t_err < 6 target": t < 6.0 * out["target_score_solve_t_err"],
+              "t_err < 0.95": t < 0.95, "a_err < 45": a < 45.0, "recall > 0.30": r > 0.30}
+    if not all(checks.values()):
+        raise AssertionError(f"accuracy tool missed {[k for k, v in checks.items() if not v]}")
+    kernels = accuracy_batch_check(obs.trainer)
+    log(f"phase 12 (a) one batch of the trained module, fused vs plain: {json.dumps(kernels)} "
+        f"(limits: scores {PIPELINE_TOL}, loss {TRAIN_LOSS_TOL}, gradients {TRAIN_GRAD_TOL})")
+    return {"launches": launches, "wall_s": wall, "result": out, "kernels": kernels,
+            **obs.train_summary()}
+
+
+def raster_kernel_checks(pt, label: str, scene, cam, bg) -> dict:
+    """B5, B3 and B3 with the store and B4 against their plain versions on
+    the layout that ``scene`` through ``cam`` gives (phase 5's gates)."""
+    proj, lay, _ = layout_of(scene, cam)
+    gidx_al = pt._align_compact(lay.gidx_c, lay.starts, lay.starts_al, lay.n_tiles, lay.P)
+    want = pt.align_compact_plain(lay.gidx_c, lay.starts, lay.starts_al, lay.n_tiles, lay.P)
+    torch.cuda.synchronize()
+    if not torch.equal(gidx_al, want):
+        raise AssertionError(f"B5 {label}: differs from its plain version")
+    records = pt._gather_records(lay, gidx_al)
+    args = (records, lay.starts_al, lay.counts_k, lay.nx, lay.ny, bg)
+    out = pt.pallas_composite_fwd(*args)
+    b3_err = b3_check(label, out, pt.composite_fwd_plain(*args))
+    b4_err = backward_checks(pt, label, args, out)
+    return {"tiles": lay.n_tiles, "pairs": int(lay.starts[-1]), "b5_equal": True,
+            "b3_err": b3_err, "b4_err": b4_err}
+
+
+def tools_quality(ak, pt) -> dict:
+    """Phase 12 (b): tools.quality_workflow through its main at 400x400,
+    TOOLS_QW_ITERS iterations from a sparse init with the opacity reset at
+    TOOLS_QW_RESET; the trainer's densifications, resets and SH steps are
+    counted from inside the run. Then the kernels against their plain
+    versions on the run's inputs: the layout of the first GT render, and
+    one step from the trained state (the layout of its camera, and the
+    step's gradients against a twin through the plain B3 and B4)."""
+    from sixdgs_torch.scene.cameras import camera_list_from_infos
+    from sixdgs_torch.scene.gaussians import PARAM_NAMES
+    from sixdgs_torch.train import gs_trainer as gs
+    from sixdgs_torch.tools import quality_workflow
+
+    events = {"densify": 0, "reset": 0}
+    densify, reset, run = gs.densify_event, gs.reset_opacity, gs.GSTrainer.run
+    render_gt = quality_workflow.render_gt_images
+    trainers, gt = [], []
+
+    def counted_densify(*a, **k):
+        events["densify"] += 1
+        return densify(*a, **k)
+
+    def counted_reset(*a, **k):
+        events["reset"] += 1
+        return reset(*a, **k)
+
+    def kept_run(self, *a, **k):
+        trainers.append(self)
+        return run(self, *a, **k)
+
+    def kept_render(scene, infos, *a, **k):
+        gt.append((scene, infos[0]))
+        return render_gt(scene, infos, *a, **k)
+
+    workdir = tempfile.mkdtemp(prefix="quality_workflow_")
+    gs.densify_event, gs.reset_opacity, gs.GSTrainer.run = (counted_densify, counted_reset,
+                                                            kept_run)
+    quality_workflow.render_gt_images = kept_render
+    try:
+        torch.cuda.synchronize()
+        zero_launch_counts(ak, pt)
+        t0 = time.perf_counter()
+        out = quality_workflow.main(["--workdir", workdir] + TOOLS_QW_ARGS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts(ak, pt)
+    finally:
+        gs.densify_event, gs.reset_opacity, gs.GSTrainer.run = densify, reset, run
+        quality_workflow.render_gt_images = render_gt
+    losses = []
+    with open(os.path.join(workdir, "out", "metrics.jsonl")) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            if rec["tag"] == "train_loss_patches/total_loss":
+                losses.append(rec["value"])
+    shutil.rmtree(workdir)
+    views = TOOLS_QW_TRAIN + TOOLS_QW_TEST
+    # GT renders of every view, the test renders at the last iteration, and
+    # the render app's renders of every view: B5 and B3 without the store;
+    # each step B5, B3 with the store and B4
+    renders = views + TOOLS_QW_TEST + views
+    want = {"b1": 0, "b2": 0, "b5": TOOLS_QW_ITERS + renders, "b3": renders,
+            "b3_store": TOOLS_QW_ITERS, "b4": TOOLS_QW_ITERS}
+    floor = TOOLS_QW_PSNR_CARD - TOOLS_QW_PSNR_MARGIN
+    sh = trainers[0].active_sh_degree if trainers else None
+    log(f"phase 12 (b) quality_workflow, {TOOLS_QW_ITERS} iterations at 400x400 from "
+        f"{TOOLS_QW_INIT} points: {json.dumps(out)}; wall {wall:.2f} s; events "
+        f"{json.dumps(events)}, active SH degree {sh}; {len(losses)} logged losses "
+        f"{losses[0] if losses else None} -> {losses[-1] if losses else None}; PSNR floor "
+        f"{floor}; launches {json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(f"quality workflow launches {launches}, expected {want}")
+    if not (len(losses) == TOOLS_QW_ITERS // 50 and all(map(math.isfinite, losses))):
+        raise AssertionError(f"quality workflow losses {losses}")
+    if events != {"densify": TOOLS_QW_DENSIFY, "reset": 1} or sh != 1:
+        raise AssertionError(f"quality workflow events {events}, SH degree {sh}")
+    if out["final_gaussians"] == out["init_points"]:
+        raise AssertionError("densification left the Gaussian count unchanged")
+    if not (math.isfinite(out["value"]) and 0 <= out["ssim"] <= 1 and out["value"] >= floor):
+        raise AssertionError(f"quality workflow PSNR {out['value']} (floor {floor}), SSIM "
+                             f"{out['ssim']}")
+
+    # the kernels on the run's own inputs: the first GT view (black
+    # background, as the tool renders it), then one step from the trained
+    # state with fresh Adam moments (m = 0.1 g after one step) through the
+    # kernels and through a plain twin
+    gt_scene, gt_info = gt[0]
+    kernels = {"gt_render": raster_kernel_checks(
+        pt, "quality GT view", gt_scene, camera_list_from_infos([gt_info])[0],
+        torch.zeros(3, device="cuda"))}
+    tr = trainers[0]
+    cam = tr.train_cams[0]
+    kernels["trained_step"] = raster_kernel_checks(pt, "quality trained state", tr.state.scene,
+                                                   cam, tr.bg)
+    start = gs.init_train_state(tr.state.scene)
+    step = dict(width=cam.width, height=cam.height, sh_degree=tr.active_sh_degree,
+                rasterizer="auto")
+    arrays = gs.camera_arrays(cam, "cuda", with_image=True)
+    lrs = gs.lr_dict(tr.opt, tr.spatial_lr_scale, TOOLS_QW_ITERS)
+    b4_before = pt.pallas_composite_bwd.launches
+    got, metrics = gs.train_step(start, arrays, tr.bg, lrs, **step)
+    with plain_compositor(pt):
+        twin, _ = gs.train_step(start, arrays, tr.bg, lrs, with_telemetry=False, **step)
+    torch.cuda.synchronize()
+    if pt.pallas_composite_bwd.launches != b4_before + 1:
+        raise AssertionError("the plain twin launched B4, or the kernels' step did not")
+    if int(metrics["binning_grad_dropped"]):
+        raise AssertionError("the trained state's step dropped its raster gradients")
+    worst = 0.0
+    for k in PARAM_NAMES:
+        g, w = 10 * got.adam.m[k], 10 * twin.adam.m[k]
+        err, scale = (g - w).abs().max().item(), w.abs().max().item()
+        # a group the plain twin gives no gradient (SH bands above the
+        # active degree) must get none through the kernels either
+        if not err <= GS_GRAD_TOL * scale:
+            raise AssertionError(f"quality trained-state gradient of {k}: {err} > "
+                                 f"{GS_GRAD_TOL} * {scale}")
+        worst = max(worst, err / scale) if scale else worst
+    kernels["trained_step"]["grad_err_rel"] = worst
+    log(f"phase 12 (b) kernels on the run's inputs against their plain versions: "
+        f"{json.dumps(kernels)} (gradient limit {GS_GRAD_TOL})")
+    return {"launches": launches, "wall_s": wall, "events": events, "result": out,
+            "kernels": kernels}
+
+
+def tools_pose_stage(ak, pt) -> dict:
+    """Phase 12 (c): tools.pose_stage_artifact through its main, fused, at
+    TOOLS_PS_GS_ITERS 3DGS and TOOLS_PS_POSE_ITERS pose iterations per
+    backbone; each pose driver call's launches, training time and peak host
+    RSS and device memory read from inside the run."""
+    from sixdgs_torch.tools import pose_stage_artifact
+    from sixdgs_torch.utils.config import PoseEstimationConfig
+
+    workdir = tempfile.mkdtemp(prefix="pose_stage_")
+    peaks = Peaks()
+    try:
+        with ToolObserver(peaks, counts=lambda: launch_counts(ak, pt)) as obs:
+            torch.cuda.synchronize()
+            zero_launch_counts(ak, pt)
+            t0 = time.perf_counter()
+            art = pose_stage_artifact.main(
+                ["--workdir", workdir, "--gs_iterations", str(TOOLS_PS_GS_ITERS),
+                 "--n_iterations", str(TOOLS_PS_POSE_ITERS), "--fused_attention"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts(ak, pt)
+    finally:
+        peaks.stop()
+    shutil.rmtree(workdir)
+    calls = [{"backbone": c["argv"][c["argv"].index("--backbone") + 1],
+              **{k: v for k, v in c.items() if k not in ("call", "argv")}}
+             for c in obs.calls if c["call"] == "pose_eval"]
+    brief = {k: {kk: vv for kk, vv in v.items() if kk != "results"} for k, v in art.items()
+             if k in ("stages", "dino", "superpoint")}
+    log(f"phase 12 (c) pose_stage_artifact, {TOOLS_PS_GS_ITERS} 3DGS and "
+        f"{TOOLS_PS_POSE_ITERS} pose iterations, fused: {json.dumps(brief)}; wall "
+        f"{wall:.2f} s; driver calls {json.dumps(calls)}; launches {json.dumps(launches)}")
+    views = TOOLS_PS_TRAIN + TOOLS_PS_TEST
+    # the GT renders and the test renders at the last 3DGS iteration (B5,
+    # B3); each 3DGS step B5, B3 with the store, B4
+    renders = views + TOOLS_PS_TEST
+    calls_per = {"dino": 1, "superpoint": SP_CHUNKS}
+    # each image of a step, each train and test view at every validation
+    # (the trainer's target-score pass every val_every_n_iterations), and
+    # the test views twice at the end
+    val = TOOLS_PS_POSE_ITERS // PoseEstimationConfig().val_every_n_iterations
+    b1 = (TOOLS_PS_POSE_ITERS * TOOLS_PS_BATCH + val * (TOOLS_PS_TRAIN + TOOLS_PS_TEST)
+          + 2 * TOOLS_PS_TEST)
+    b2 = TOOLS_PS_POSE_ITERS * TOOLS_PS_BATCH
+    want = {"b1": b1 * sum(calls_per.values()), "b2": b2 * sum(calls_per.values()),
+            "b5": TOOLS_PS_GS_ITERS + renders, "b3": renders,
+            "b3_store": TOOLS_PS_GS_ITERS, "b4": TOOLS_PS_GS_ITERS}
+    if launches != want:
+        raise AssertionError(f"pose stage launches {launches}, expected {want}")
+    # a renewal at every renewal_every_n_iterations-th step from step 0
+    renewals = -(-TOOLS_PS_POSE_ITERS // PoseEstimationConfig().renewal_every_n_iterations)
+    if [c["backbone"] for c in calls] != list(calls_per):
+        raise AssertionError(f"pose stage driver calls {[c['backbone'] for c in calls]}")
+    for call in calls:
+        per = calls_per[call["backbone"]]
+        got = {k: call["launches"][k] for k in ("b1", "b2")}
+        if got != {"b1": b1 * per, "b2": b2 * per}:
+            raise AssertionError(f"pose stage {call['backbone']} driver launches {got}")
+        if call["renewals"]["count"] != renewals:
+            raise AssertionError(f"pose stage {call['backbone']}: {call['renewals']['count']} "
+                                 f"ray renewals, expected {renewals}")
+    for backbone in calls_per:
+        rec = art[backbone]
+        errs = [rec[k] for k in ("overfit_t_err", "overfit_a_err", "test_t_err",
+                                 "test_a_err", "test_recall", "time_per_image_s")]
+        if not (rec["n_results"] == len(rec["results"]) == TOOLS_PS_TEST
+                and all(e is not None and math.isfinite(e) for e in errs)
+                and np.isfinite(c2w_errors(rec["results"])).all()):
+            raise AssertionError(f"pose stage {backbone}: {rec['n_results']} results, "
+                                 f"errors {errs}")
+    return {"launches": launches, "wall_s": wall, "calls": calls, "artifact": brief}
+
+
+def phase_tools(ak, pt) -> dict:
+    """Phase 12: the workflow tools through their main, at a cut depth."""
+    t0 = time.perf_counter()
+    out = {"accuracy": tools_accuracy(ak, pt), "quality": tools_quality(ak, pt),
+           "pose_stage": tools_pose_stage(ak, pt)}
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"phase 12 workflow tools: ok in {out['wall_s']:.1f} s; {gpu_line()}")
+    return out
+
+
 def ptxas_report(build, name: str, defines: tuple = ()) -> list:
     """Registers, spills and static shared memory of each kernel of
     csrc/<name>.cu (built with ``defines``), from the ptxas report that the
@@ -3199,6 +3725,10 @@ def main() -> int:
                          {"images": images, "masks": masks, "c2ws": c2ws, "rays": rays,
                           "dino": dino_model, "id_module": id_module})
 
+    # 12. the workflow tools through their main, at a cut depth
+    tools = phase_tools(ak, pt)
+    acc, qw, ps = (tools[k]["launches"] for k in ("accuracy", "quality", "pose_stage"))
+
     records = [{
         "name": "B1 attention_scores_fused (_fwd_kernel_train; 4 CUDA kernels per launch, "
                 "reassociated, mma.sync in bf16 pieces, one logits tile with B2)",
@@ -3211,7 +3741,8 @@ def main() -> int:
                              "pose_driver": driver["launches"][0],
                              "pose_driver_superpoint": sp_driver["launches"][0],
                              "pose_driver_cambridge": cl["launches"][0],
-                             "profiling_trace": rest["profiling"]["launches"]},
+                             "profiling_trace": rest["profiling"]["launches"],
+                             "tools_accuracy": acc["b1"], "tools_pose_stage": ps["b1"]},
         "max_abs_err": max_abs_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -3235,7 +3766,8 @@ def main() -> int:
         "launches_by_path": {"serving": 0, "training": train_b2,
                              "pose_driver": driver["launches"][1],
                              "pose_driver_superpoint": sp_driver["launches"][1],
-                             "pose_driver_cambridge": cl["launches"][1]},
+                             "pose_driver_cambridge": cl["launches"][1],
+                             "tools_accuracy": acc["b2"], "tools_pose_stage": ps["b2"]},
         "max_abs_err": b2_max_abs_err,
         "ms": b2_ms,
         "plain_ms": b2_plain_ms,
@@ -3268,7 +3800,9 @@ def main() -> int:
                              "sharded_gs_step": par["gs_launches"]["b5"],
                              "sharded_gs_step_nccl1": par["gs_launches_nccl1"]["b5"],
                              "sharded_render": par["render_launches"]["b5"],
-                             "sharded_render_nccl1": par["render_launches_nccl1"]["b5"]},
+                             "sharded_render_nccl1": par["render_launches_nccl1"]["b5"],
+                             "tools_accuracy": acc["b5"], "tools_quality": qw["b5"],
+                             "tools_pose_stage": ps["b5"]},
         "max_abs_err": render["b5_err"],
         "ms": b5_ms,
         "plain_ms": b5_plain_ms,
@@ -3301,7 +3835,11 @@ def main() -> int:
                              "sharded_gs_step_store_t_nccl1":
                                  par["gs_launches_nccl1"]["b3_store"],
                              "sharded_render": par["render_launches"]["b3"],
-                             "sharded_render_nccl1": par["render_launches_nccl1"]["b3"]},
+                             "sharded_render_nccl1": par["render_launches_nccl1"]["b3"],
+                             "tools_accuracy": acc["b3"], "tools_quality": qw["b3"],
+                             "tools_quality_store_t": qw["b3_store"],
+                             "tools_pose_stage": ps["b3"],
+                             "tools_pose_stage_store_t": ps["b3_store"]},
         "max_abs_err": render["b3_err"],
         "ms": b3_ms,
         "plain_ms": b3_plain_ms,
@@ -3328,7 +3866,8 @@ def main() -> int:
                              "full_eval": fe["launches"]["b4"],
                              "gui_train_gs": gui["launches_train_gs"]["b4"],
                              "sharded_gs_step": par["gs_launches"]["b4"],
-                             "sharded_gs_step_nccl1": par["gs_launches_nccl1"]["b4"]},
+                             "sharded_gs_step_nccl1": par["gs_launches_nccl1"]["b4"],
+                             "tools_quality": qw["b4"], "tools_pose_stage": ps["b4"]},
         "max_abs_err": render["b4_err"],
         "ms": b4_ms,
         "plain_ms": b4_plain_ms,
@@ -3356,6 +3895,7 @@ def main() -> int:
     log("the rest of the CLIs: " + json.dumps(rest))
     log("parallel/ (phase 11): " + json.dumps({"timing": par["timing"],
                                                 "errors": par["errors"]}))
+    log("workflow tools (phase 12): " + json.dumps(tools))
     log(f"whole script {time.perf_counter() - t_start:.1f} s")
     log(gpu_line())
     print(json.dumps({"kernels": records}))
