@@ -183,7 +183,13 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      the plain scorer (phases 3 and 4's limits); on (b)'s first 400x400 GT
      view and its trained state, B5, B3, B3 with the store and B4 (phase
      5's limits), and one step from the trained state through the kernels
-     against a plain twin (phase 6's gradient limit).
+     against a plain twin (phase 6's gradient limit). Then the determinism
+     gate: (b)'s training (apps.train_gs.main with the tool's arguments) a
+     second time in this process, its state digested every 25 iterations
+     (GSDigests: the loss, the active count, each parameter group's sum and
+     sum of squares, a hash of every byte of the state) across the
+     densifications at 600-1,000, the reset at 800 and the SH step at
+     1,000, equal to (b)'s digest for digest.
 
 The last three lines of standard output are the card's name and power limit
 (nvidia-smi), one JSON object with a record per kernel, and the result line
@@ -193,6 +199,7 @@ CUDA device is present or any phase fails.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -404,14 +411,15 @@ TOOLS_QW_ARGS = ["--iterations", str(TOOLS_QW_ITERS), "--n_init", str(TOOLS_QW_I
                  "--extra_train_args", f"--opacity_reset_interval {TOOLS_QW_RESET}"]
 TOOLS_QW_TRAIN, TOOLS_QW_TEST = 28, 6
 TOOLS_QW_DENSIFY = 5
-# held-out PSNR floor of the cut run. Every run of this configuration on an
-# H100 (700 W), in workflow_depth.py and in this phase on several machines,
-# read 19.94 dB (PERF.md §6), against 27.6-28.5 for the tool's full
-# 3,000 iterations from the whole cloud. The floor sits
-# TOOLS_QW_PSNR_MARGIN below the cut run's reading: room for another
-# card, driver or torch to reorder float sums along 1,000 steps; a drop
-# past it is a regression of the trainer, not noise
-TOOLS_QW_PSNR_CARD = 19.94
+# held-out PSNR floor of the cut run. Since the host's exp and log are
+# taken in float64 (ops/transforms.py exp32, log32) this configuration
+# reads 20.18 dB on an H100 (700 W) (19.94 before, in every run on several
+# machines; PERF.md §6), against 28.17 for the tool's full 3,000
+# iterations from the whole cloud. The floor sits TOOLS_QW_PSNR_MARGIN
+# below the cut run's reading: room for another card, driver or torch to
+# reorder float sums along 1,000 steps; a drop past it is a regression of
+# the trainer, not noise
+TOOLS_QW_PSNR_CARD = 20.18
 TOOLS_QW_PSNR_MARGIN = 1.5
 # the pose stage cut to 300 3DGS iterations and 30 pose iterations per
 # backbone (24 train, 8 test views at 400x400; batch 32; B1 once per image
@@ -2972,6 +2980,113 @@ class ToolObserver:
             setattr(obj, name, fn)
 
 
+def state_digest(state, loss) -> dict:
+    """What a 3DGS training state holds, compared across runs: the loss of
+    the step that made it (float64 repr), the active count, the float64
+    sum and sum of squares of each parameter group, and a blake2b of every
+    byte of the state (parameters, mask, both Adam moments and the step,
+    the densification statistics)."""
+    from sixdgs_torch.scene.gaussians import PARAM_NAMES
+
+    sc = state.scene
+    groups = [getattr(sc, k) for k in PARAM_NAMES]
+    tensors = (groups + [sc.active] + [state.adam.m[k] for k in PARAM_NAMES]
+               + [state.adam.v[k] for k in PARAM_NAMES]
+               + [state.adam.step, state.xyz_grad_accum, state.denom, state.max_radii2d])
+    sums = torch.stack([f(g.double()) for g in groups
+                        for f in (torch.sum, lambda x: torch.sum(x * x))]).tolist()
+    h = hashlib.blake2b(digest_size=16)
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return {"loss": None if loss is None else repr(float(loss)),
+            "num_active": int(sc.num_active()),
+            "sums": {k: [repr(sums[2 * i]), repr(sums[2 * i + 1])]
+                     for i, k in enumerate(PARAM_NAMES)},
+            "hash": h.hexdigest()}
+
+
+class GSDigests:
+    """Digests (``state_digest``) of every GSTrainer.run inside the block,
+    read through the run's own ``pre_step`` hook: the state entering
+    iteration it + 1 for every it that is a multiple of ``every`` (so each
+    densification at a multiple of 100 is digested just after it), and the
+    final state when the run returns. ``runs`` holds one list per run, each
+    entry with its ``it``. ``timing`` holds per run its iterations, wall
+    (the digests included), digest seconds and densification events and
+    seconds (densify_event), so that the ms a step without the digests
+    shows."""
+
+    def __init__(self, every: int = 25):
+        self.every, self.runs, self.timing = every, [], []
+        self._loss = None
+
+    def _take(self, it: int, state) -> None:
+        t0 = time.perf_counter()
+        self.runs[-1].append({"it": it, **state_digest(state, self._loss)})
+        self.timing[-1]["digest_s"] += time.perf_counter() - t0
+
+    def __enter__(self):
+        from sixdgs_torch.train import gs_trainer as gs
+
+        self._saved = (gs.GSTrainer.run, gs.train_step, gs.densify_event)
+        run, step, densify, obs = gs.GSTrainer.run, gs.train_step, gs.densify_event, self
+
+        def digested_step(*a, **k):
+            state, metrics = step(*a, **k)
+            obs._loss = metrics["loss"]
+            return state, metrics
+
+        def timed_densify(*a, **k):
+            t0 = time.perf_counter()
+            out = densify(*a, **k)
+            obs.timing[-1]["densify_n"] += 1
+            obs.timing[-1]["densify_s"] += time.perf_counter() - t0
+            return out
+
+        def digested_run(tr, *a, pre_step=None, **k):
+            obs.runs.append([])
+            obs._loss = None
+            first = k.get("first_iteration", 1)
+            last = k.get("iterations") or tr.opt.iterations
+            obs.timing.append({"iterations": last - first + 1, "run_s": 0.0, "digest_s": 0.0,
+                               "densify_n": 0, "densify_s": 0.0})
+
+            def hook(it, trainer):
+                if (it - 1) % obs.every == 0:
+                    obs._take(it - 1, trainer.state)
+                if pre_step is not None:
+                    pre_step(it, trainer)
+
+            t0 = time.perf_counter()
+            out = run(tr, *a, pre_step=hook, **k)
+            obs._take(last, tr.state)
+            obs.timing[-1]["run_s"] = time.perf_counter() - t0
+            return out
+
+        gs.GSTrainer.run, gs.train_step, gs.densify_event = (digested_run, digested_step,
+                                                             timed_densify)
+        return self
+
+    def __exit__(self, *exc):
+        from sixdgs_torch.train import gs_trainer as gs
+
+        gs.GSTrainer.run, gs.train_step, gs.densify_event = self._saved
+
+
+def first_divergence(a: list, b: list):
+    """The first digest of run ``b`` that differs from run ``a``'s at the
+    same iteration, as (iteration, [differing fields]), or None when every
+    common iteration agrees."""
+    for da, db in zip(a, b):
+        if da["it"] != db["it"]:
+            return da["it"], ["it"]
+        diff = [k for k in ("loss", "num_active", "hash") if da[k] != db[k]]
+        diff += [f"sums.{g}" for g in da["sums"] if da["sums"][g] != db["sums"][g]]
+        if diff:
+            return da["it"], diff
+    return None
+
+
 def id_grad_gate(label: str, got: dict, want: dict) -> float:
     """The id module's gradients through the fused scorer (``got``) against
     the plain scorer's (``want``): each parameter's within TRAIN_GRAD_TOL
@@ -3101,6 +3216,7 @@ def tools_quality(ak, pt) -> dict:
     versions on the run's inputs: the layout of the first GT render, and
     one step from the trained state (the layout of its camera, and the
     step's gradients against a twin through the plain B3 and B4)."""
+    from sixdgs_torch.apps import train_gs
     from sixdgs_torch.scene.cameras import camera_list_from_infos
     from sixdgs_torch.scene.gaussians import PARAM_NAMES
     from sixdgs_torch.train import gs_trainer as gs
@@ -3108,8 +3224,8 @@ def tools_quality(ak, pt) -> dict:
 
     events = {"densify": 0, "reset": 0}
     densify, reset, run = gs.densify_event, gs.reset_opacity, gs.GSTrainer.run
-    render_gt = quality_workflow.render_gt_images
-    trainers, gt = [], []
+    render_gt, train_main = quality_workflow.render_gt_images, train_gs.main
+    trainers, gt, train_argvs = [], [], []
 
     def counted_densify(*a, **k):
         events["densify"] += 1
@@ -3127,27 +3243,33 @@ def tools_quality(ak, pt) -> dict:
         gt.append((scene, infos[0]))
         return render_gt(scene, infos, *a, **k)
 
+    def kept_train(argv=None):
+        train_argvs.append(list(argv))
+        return train_main(argv)
+
     workdir = tempfile.mkdtemp(prefix="quality_workflow_")
     gs.densify_event, gs.reset_opacity, gs.GSTrainer.run = (counted_densify, counted_reset,
                                                             kept_run)
-    quality_workflow.render_gt_images = kept_render
+    quality_workflow.render_gt_images, train_gs.main = kept_render, kept_train
     try:
-        torch.cuda.synchronize()
-        zero_launch_counts(ak, pt)
-        t0 = time.perf_counter()
-        out = quality_workflow.main(["--workdir", workdir] + TOOLS_QW_ARGS)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = launch_counts(ak, pt)
+        with GSDigests() as digests:
+            torch.cuda.synchronize()
+            zero_launch_counts(ak, pt)
+            t0 = time.perf_counter()
+            out = quality_workflow.main(["--workdir", workdir] + TOOLS_QW_ARGS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts(ak, pt)
     finally:
         gs.densify_event, gs.reset_opacity, gs.GSTrainer.run = densify, reset, run
-        quality_workflow.render_gt_images = render_gt
+        quality_workflow.render_gt_images, train_gs.main = render_gt, train_main
     losses = []
     with open(os.path.join(workdir, "out", "metrics.jsonl")) as fh:
         for line in fh:
             rec = json.loads(line)
             if rec["tag"] == "train_loss_patches/total_loss":
                 losses.append(rec["value"])
+    gate = determinism_gate(train_argvs, digests.runs, workdir)
     shutil.rmtree(workdir)
     views = TOOLS_QW_TRAIN + TOOLS_QW_TEST
     # GT renders of every view, the test renders at the last iteration, and
@@ -3215,7 +3337,35 @@ def tools_quality(ak, pt) -> dict:
     log(f"phase 12 (b) kernels on the run's inputs against their plain versions: "
         f"{json.dumps(kernels)} (gradient limit {GS_GRAD_TOL})")
     return {"launches": launches, "wall_s": wall, "events": events, "result": out,
-            "kernels": kernels}
+            "kernels": kernels, "determinism": gate}
+
+
+def determinism_gate(train_argvs: list, runs: list, workdir: str) -> dict:
+    """The quality cut's training once more in this process, through
+    apps.train_gs.main with the tool's arguments (another model path),
+    held to the first run digest for digest (GSDigests)."""
+    from sixdgs_torch.apps import train_gs
+
+    if len(train_argvs) != 1 or len(runs) != 1:
+        raise AssertionError(f"determinism gate: {len(train_argvs)} train_gs calls, "
+                             f"{len(runs)} digested runs")
+    argv = list(train_argvs[0])
+    argv[argv.index("--model_path") + 1] = os.path.join(workdir, "again")
+    t0 = time.perf_counter()
+    with GSDigests() as again:
+        train_gs.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    first, second = runs[0], again.runs[0]
+    div = first_divergence(first, second)
+    log(f"phase 12 (b) determinism: train_gs.main again, {len(second)} digests (iterations "
+        f"{first[0]['it']}-{first[-1]['it']}: densifications, the reset, the SH step), first "
+        f"divergent {div}, final {second[-1]['num_active']} Gaussians, loss "
+        f"{second[-1]['loss']}, hash {second[-1]['hash']}; {wall:.2f} s")
+    if div is not None or len(first) != len(second):
+        raise AssertionError(f"determinism gate: the second run leaves the first at {div} "
+                             f"({len(first)} against {len(second)} digests)")
+    return {"digests": len(second), "final": second[-1], "wall_s": wall}
 
 
 def tools_pose_stage(ak, pt) -> dict:

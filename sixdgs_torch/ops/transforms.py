@@ -7,11 +7,29 @@ projection reads.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
 def inverse_sigmoid(x: torch.Tensor) -> torch.Tensor:
     return torch.log(x / (1.0 - x))
+
+
+# Host-side float32 exp and log. numpy's float32 kernels are chosen for the
+# CPU at hand and round differently from one SIMD level to another (a CPU
+# without AVX2 and FMA disagrees with one that has them in a fifth to two
+# fifths of the values), so an initialisation or a densification that took
+# them would end elsewhere on another host. float64 results round to the
+# same float32 on every host: these take the function in float64 and round
+# once.
+
+
+def exp32(x) -> np.ndarray:
+    return np.exp(np.asarray(x, np.float64)).astype(np.float32)
+
+
+def log32(x) -> np.ndarray:
+    return np.log(np.asarray(x, np.float64)).astype(np.float32)
 
 
 def quat_to_rotmat(q: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ from sixdgs_torch.ops.transforms import (
     build_covariance,
     build_covariance_6,
     inverse_sigmoid,
+    log32,
     quat_to_rotmat,
 )
 from sixdgs_torch.scene import ply_io
@@ -153,7 +154,8 @@ def create_from_pcd(pcd: BasicPointCloud, max_sh_degree: int = 3,
     n = pts.shape[0]
     fused_color = rgb_to_sh(torch.tensor(np.asarray(pcd.colors, np.float32))).numpy()
     dist2 = mean_sq_dist_3nn(torch.tensor(pts, device=device)).cpu().numpy()
-    scales = np.log(np.sqrt(np.maximum(dist2, 1e-7)))[:, None].repeat(3, axis=1)
+    # log32: the same float32 on every host (ops/transforms.py)
+    scales = log32(np.sqrt(np.maximum(dist2, 1e-7)))[:, None].repeat(3, axis=1)
     rots = np.zeros((n, 4), np.float32)
     rots[:, 0] = 1.0
     opacities = inverse_sigmoid(0.1 * torch.ones((n, 1), dtype=torch.float32)).numpy()

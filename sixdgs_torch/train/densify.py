@@ -8,6 +8,10 @@ the caller re-pads the returned arrays into a capacity bucket.
 
 Optimizer-state surgery parity (gaussian_model.py:422-507): kept Gaussians
 carry their Adam (m, v); new (cloned/split) ones start at zero.
+
+Every exp and log here goes through ``exp32`` / ``log32`` (float64, rounded
+once), so that a densification splits, clones and prunes the same on every
+host (ops/transforms.py).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from sixdgs_torch.ops.transforms import quat_to_rotmat
+from sixdgs_torch.ops.transforms import exp32, log32, quat_to_rotmat
 
 PARAM_NAMES = ("xyz", "features_dc", "features_rest", "opacity", "scaling", "rotation")
 
@@ -65,7 +69,7 @@ def densify_and_prune(
         gaussian_model.py:535-537).
     """
     grads = np.nan_to_num(grads, nan=0.0)
-    scaling = np.exp(params["scaling"])
+    scaling = exp32(params["scaling"])
 
     # ---- clone (gaussian_model.py:583-608): small gaussians under-reconstructing
     clone_mask = (grads >= max_grad) & (scaling.max(axis=1) <= percent_dense * extent)
@@ -82,14 +86,14 @@ def densify_and_prune(
     n1 = params["xyz"].shape[0]
     padded_grad = np.zeros(n1)
     padded_grad[:n0] = grads
-    scaling1 = np.exp(params["scaling"])
+    scaling1 = exp32(params["scaling"])
     split_mask = (padded_grad >= max_grad) & (
         scaling1.max(axis=1) > percent_dense * extent
     )
     sel = _gather(params, split_mask)
     n_split = sel["xyz"].shape[0]
     if n_split:
-        stds = np.exp(sel["scaling"])  # [S, 3]
+        stds = exp32(sel["scaling"])  # [S, 3]
         stds_rep = np.tile(stds, (N, 1))
         samples = rng.normal(0.0, 1.0, size=stds_rep.shape).astype(np.float32) * stds_rep
         rots = np.tile(_rotmats(sel["rotation"]), (N, 1, 1))
@@ -99,7 +103,7 @@ def densify_and_prune(
             "features_dc": np.tile(sel["features_dc"], (N, 1, 1)),
             "features_rest": np.tile(sel["features_rest"], (N, 1, 1)),
             "opacity": np.tile(sel["opacity"], (N, 1)),
-            "scaling": np.log(stds_rep / (0.8 * N)).astype(np.float32),
+            "scaling": log32(stds_rep / (0.8 * N)),
             "rotation": np.tile(sel["rotation"], (N, 1)),
         }
         params = _concat(params, new)
@@ -114,7 +118,7 @@ def densify_and_prune(
         max_radii2d = max_radii2d[keep]
 
     # ---- prune (gaussian_model.py:610-626)
-    opacity = 1.0 / (1.0 + np.exp(-params["opacity"][:, 0]))
+    opacity = 1.0 / (1.0 + exp32(-params["opacity"][:, 0]))
     prune_mask = opacity < min_opacity
     # hardening beyond the reference: drop gaussians whose params diverged to
     # non-finite values (they would otherwise poison every later render)
@@ -124,7 +128,7 @@ def densify_and_prune(
     prune_mask = prune_mask | ~finite
     if max_screen_size:
         big_vs = max_radii2d > max_screen_size
-        big_ws = np.exp(params["scaling"]).max(axis=1) > 0.1 * extent
+        big_ws = exp32(params["scaling"]).max(axis=1) > 0.1 * extent
         prune_mask = prune_mask | big_vs | big_ws
     keep = ~prune_mask
     params = _gather(params, keep)

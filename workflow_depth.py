@@ -32,16 +32,34 @@ the run shows. Prints each tool's own output, then one JSON object per run
 ("[depth] {...}"), the card's name and power limit from nvidia-smi, and
 writes all of it to ``--out`` (default build/workflow_depth.json).
 Exits non-zero when no CUDA device is present or any run fails.
+
+Parity at depth: every 3DGS training run inside a run is digested
+(chip_smoke.GSDigests: every 25 iterations and after the last, the loss,
+the active count, the sum and sum of squares of each parameter group and a
+hash of the state's bytes) and timed (ms a step without the digests, the
+densifications' seconds), and the record starts with the host's facts
+(CPU model and flags, cores, torch, CUDA, cuDNN, numpy and driver
+versions, a hash of the card's UUID). ``--repeat N`` runs the quality tool
+N times (quality, quality_2, ...) and prints, for each repeat, the first
+digest at which it leaves the first run's, or that none does. ``--runs``
+picks runs by name; ``--deterministic`` runs under
+torch.use_deterministic_algorithms(True) with
+CUBLAS_WORKSPACE_CONFIG=:4096:8, so that an operation without a
+deterministic implementation raises where it runs.
+
+    python3 workflow_depth.py --runs quality --repeat 2
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import importlib
 import json
 import os
 import resource
 import shutil
+import subprocess
 import sys
 import time
 import traceback
@@ -49,19 +67,66 @@ import traceback
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+def host_facts() -> dict:
+    """The facts that could make two hosts round differently: CPU, cores,
+    library versions and SIMD dispatch, the driver and the card."""
+    import numpy as np
+    import torch
+
+    cpu = {}
+    with open("/proc/cpuinfo") as fh:
+        for line in fh:
+            key, _, val = line.partition(":")
+            cpu.setdefault(key.strip(), val.strip())
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit,driver_version,uuid",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60)
+    name, limit, driver, uuid = [f.strip() for f in smi.stdout.splitlines()[0].split(",")]
+    features = np._core._multiarray_umath.__cpu_features__
+    return {"cpu_model": cpu.get("model name"), "cpu_flags": cpu.get("flags"),
+            "cores": os.cpu_count(), "python": sys.version.split()[0],
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda, "cudnn": torch.backends.cudnn.version(),
+            "torch_cpu_capability": torch.backends.cpu.get_cpu_capability(),
+            "torch_threads": torch.get_num_threads(), "numpy": np.__version__,
+            "numpy_simd": [k for k, v in features.items() if v],
+            "gpu": f"{name}, {limit}", "driver": driver,
+            # the card itself, as a hash: two runs on one card share it
+            "card": hashlib.sha256(uuid.encode()).hexdigest()[:12],
+            "env": {k: os.environ.get(k) for k in (
+                "ATEN_CPU_CAPABILITY", "NPY_DISABLE_CPU_FEATURES", "OPENBLAS_CORETYPE",
+                "OMP_NUM_THREADS", "CUBLAS_WORKSPACE_CONFIG")}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--workdir", default=os.path.join(HERE, "build", "workflow_depth"))
     ap.add_argument("--out", default=os.path.join(HERE, "build", "workflow_depth.json"))
+    ap.add_argument("--runs", nargs="+", default=None,
+                    help="the runs to make, by name (default: all)")
+    ap.add_argument("--repeat", type=int, default=1,
+                    help="run the quality tool this many times")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="torch.use_deterministic_algorithms(True), "
+                    "CUBLAS_WORKSPACE_CONFIG=:4096:8")
     args = ap.parse_args(argv)
 
+    if args.deterministic:
+        os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
 
     if not torch.cuda.is_available():
         print("workflow_depth: no CUDA device", file=sys.stderr)
         return 1
+    if args.deterministic:
+        torch.use_deterministic_algorithms(True)
     sys.path.insert(0, HERE)
-    from chip_smoke import TOOLS_QW_ARGS, Peaks, ToolObserver, gib, gpu_line
+    from chip_smoke import (TOOLS_QW_ARGS, GSDigests, Peaks, ToolObserver,
+                            first_divergence, gib, gpu_line)
+
+    facts = host_facts()
+    print("[depth] host " + json.dumps({k: v for k, v in facts.items() if k != "cpu_flags"}),
+          flush=True)
 
     accuracy = ["--iterations", "600"]
     runs = {
@@ -73,8 +138,15 @@ def main(argv=None) -> int:
         "stage_30": ("pose_stage_artifact", ["--fused_attention", "--keep",
                                              "--n_iterations", "30"]),
     }
+    wanted = set(args.runs or runs)
+    if wanted - set(runs):
+        print(f"workflow_depth: unknown runs {sorted(wanted - set(runs))}", file=sys.stderr)
+        return 1
+    repeats = [f"quality_{i}" for i in range(2, args.repeat + 1)] if "quality" in wanted else []
+    runs = {k: v for k, v in runs.items() if k in wanted}
+    runs.update({k: runs["quality"] for k in repeats})
     peaks = Peaks()
-    results, failed = {}, []
+    results, failed = {"host": facts, "deterministic": args.deterministic}, []
     for name, (module, extra) in runs.items():
         tool = importlib.import_module(f"sixdgs_torch.tools.{module}")
         argv = list(extra)
@@ -85,7 +157,7 @@ def main(argv=None) -> int:
         peaks.open(name)
         t0 = time.perf_counter()
         rec = {"tool": module, "argv": argv}
-        with ToolObserver(peaks) as obs:
+        with ToolObserver(peaks) as obs, GSDigests() as dig:
             try:
                 out = tool.main(argv)
                 if module == "pose_stage_artifact":
@@ -101,9 +173,18 @@ def main(argv=None) -> int:
                     "ru_maxrss_gib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
                     * 1024 / 2**30,
                     "peak_device_gib": gib(dev), **obs.train_summary(),
-                    "calls": obs.calls, "gpu": gpu_line()})
-        results[name] = rec
+                    "calls": obs.calls, "gpu": gpu_line(),
+                    "gs_runs": [dict(t, ms_per_step=1e3 * (t["run_s"] - t["digest_s"])
+                                     / t["iterations"]) for t in dig.timing]})
         print(f"[depth] {name}: " + json.dumps(rec), flush=True)
+        rec["digests"] = dig.runs
+        if name in repeats:
+            first = results["quality"]["digests"]
+            rec["divergence"] = [first_divergence(a, b) for a, b in zip(first, dig.runs)]
+            print(f"[depth] {name} against quality: first divergent digest "
+                  f"{rec['divergence']} (None: all {len(dig.runs[0]) if dig.runs else 0} "
+                  f"digests equal)", flush=True)
+        results[name] = rec
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(results, fh, indent=1)
