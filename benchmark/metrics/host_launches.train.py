@@ -1,0 +1,7 @@
+"""Kernel launch API calls (runtime and driver) per step, validation
+included."""
+from benchmark.readers import launches_per
+
+
+def read(trace):
+    return launches_per(trace, "steps")
