@@ -86,8 +86,9 @@ Run from the root of a checkout on a machine with one CUDA GPU and nvcc
      served image's device time, B3's and B4's of a render's and a 3DGS
      step's, and B3 and B4 at each of their compile-time choices on camera
      0's layout, timed in turns, and B5's wrapper's host time per call.
-     B1's ``launches`` counts calls of its wrapper, each four CUDA kernels;
-     B2's, each ten; B5's, B3's and B4's, one each;
+     The ``kernel.*`` counters of ``utils.profiling`` count launches: B1's
+     (``kernel.b1``) each four CUDA kernels; B2's, each ten; B5's, B3's and
+     B4's, one each;
   8. the pose driver at full width: a Blender-format dataset of the render
      scene written with the port's PNG writer (4 train and 2 test 800x800
      RGBA images from render_eval on a ring), an experiment directory
@@ -551,7 +552,7 @@ def write_dataset(scene, arrays) -> str:
     return data
 
 
-def phase_pose_driver(ak, pt, scene, data, backbone: str = "dino",
+def phase_pose_driver(scene, data, backbone: str = "dino",
                       data_type: str = "blender", label: str = "") -> dict:
     """The pose driver at full width: ``apps.pose_eval.main`` on an
     experiment directory of the render scene over the dataset ``data`` of
@@ -608,8 +609,6 @@ def phase_pose_driver(ak, pt, scene, data, backbone: str = "dino",
         timing["eval_s_per_image"].append(out[5])
         return out
 
-    counters = (ak.attention_scores_fused, ak.attention_scores_bwd, pt._align_compact,
-                pt.pallas_composite_fwd, pt.pallas_composite_bwd)
     out_json = os.path.join(tmp, "pose_results.json")
     argv = ["--exp_path", os.path.dirname(exp), "--out_path", out_json, "--data_type",
             data_type, "--fused_attention", "--ray_budget", str(POSE_RAYS), "--batch",
@@ -618,14 +617,14 @@ def phase_pose_driver(ak, pt, scene, data, backbone: str = "dino",
     trainer.PoseTrainer.run, evaluate.test_pose_estimation = timed_run, timed_test
     try:
         torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
+        zero_launch_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stderr(err):
             pose_eval.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = [c.launches for c in counters]
+        counted = launch_counts()
+        launches = [counted[k] for k in ("b1", "b2", "b5", "b3", "b4")]
     finally:
         trainer.PoseTrainer.run, evaluate.test_pose_estimation = run, test
     log(f"{label}: pose_eval.main({' '.join(argv)}) in {wall:.2f} s; launches "
@@ -662,18 +661,21 @@ def phase_pose_driver(ak, pt, scene, data, backbone: str = "dino",
             "image_ms": image_ms}
 
 
-def launch_counts(ak, pt) -> dict:
-    return {"b1": ak.attention_scores_fused.launches, "b2": ak.attention_scores_bwd.launches,
-            "b5": pt._align_compact.launches, "b3": pt.pallas_composite_fwd.launches,
-            "b3_store": pt.pallas_composite_fwd.store_launches,
-            "b4": pt.pallas_composite_bwd.launches}
+def launch_counts() -> dict:
+    """Launches of each hand-written kernel since the last
+    ``zero_launch_counts()``: the ``kernel.*`` counters of ``utils.profiling``
+    (B3 without the transmittance store as ``b3``, with it as ``b3_store``)."""
+    from sixdgs_torch.utils import profiling
+
+    counters = profiling.snapshot()["counters"]
+    return {k: counters.get("kernel." + k, 0) for k in ("b1", "b2", "b5", "b3", "b3_store", "b4")}
 
 
-def zero_launch_counts(ak, pt) -> None:
-    for c in (ak.attention_scores_fused, ak.attention_scores_bwd, pt._align_compact,
-              pt.pallas_composite_fwd, pt.pallas_composite_bwd):
-        c.launches = 0
-    pt.pallas_composite_fwd.store_launches = 0
+def zero_launch_counts() -> None:
+    """Zero ``utils.profiling``'s counters (and its spans)."""
+    from sixdgs_torch.utils import profiling
+
+    profiling.snapshot(reset=True)
 
 
 def image_gate(label: str, got, want) -> float:
@@ -689,7 +691,7 @@ def image_gate(label: str, got, want) -> float:
     return worst
 
 
-def observe_gs_run(ak, pt, call, before_run=None):
+def observe_gs_run(call, before_run=None):
     """``call()`` (an app that trains through GSTrainer.run) with every
     step's start time and metrics read from inside the run (its pre_step
     and callback hooks), and the launch counts zeroed just before the call
@@ -719,23 +721,23 @@ def observe_gs_run(ak, pt, call, before_run=None):
         out = run(self, *a, callback=cb, pre_step=pre, **k)
         torch.cuda.synchronize()
         steps.append((None, time.perf_counter()))
-        at_run_end.update(launch_counts(ak, pt))
+        at_run_end.update(launch_counts())
         return out
 
     gs.GSTrainer.run = observed_run
     try:
         torch.cuda.synchronize()
-        zero_launch_counts(ak, pt)
+        zero_launch_counts()
         t0 = time.perf_counter()
         call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return wall, launch_counts(ak, pt), at_run_end, steps, logged
+        return wall, launch_counts(), at_run_end, steps, logged
     finally:
         gs.GSTrainer.run = run
 
 
-def phase_gs_apps(ak, pt, scene, data, render, gs_run) -> dict:
+def phase_gs_apps(pt, scene, data, render, gs_run) -> dict:
     """The 3DGS apps at full width, as a user calls them: ``apps.train_gs``
     (--rasterizer auto --eval, APPS_ITERS iterations from the dataset's
     262,144-point cloud, --binning_tiers APPS_TIERS; then APPS_DEFAULT_ITERS
@@ -768,7 +770,7 @@ def phase_gs_apps(ak, pt, scene, data, render, gs_run) -> dict:
     # train_gs
     def train_app(argv):
         """train_gs.main(argv) observed -> (wall s, launches, steps, logged)."""
-        wall, launches, _, steps, logged = observe_gs_run(ak, pt, lambda: train_gs.main(argv))
+        wall, launches, _, steps, logged = observe_gs_run(lambda: train_gs.main(argv))
         return wall, launches, steps, logged
 
     def binning(logged):
@@ -891,12 +893,12 @@ def phase_gs_apps(ak, pt, scene, data, render, gs_run) -> dict:
 
     render_app.render_eval = timed_render
     try:
-        zero_launch_counts(ak, pt)
+        zero_launch_counts()
         t0 = time.perf_counter()
         render_app.main(["--model_path", model, "--quiet"])
         torch.cuda.synchronize()
         render_wall = time.perf_counter() - t0
-        launches_render = launch_counts(ak, pt)
+        launches_render = launch_counts()
     finally:
         render_app.render_eval = render_eval
     expected = {"b1": 0, "b2": 0, "b5": n_images, "b3": n_images, "b3_store": 0, "b4": 0}
@@ -1058,7 +1060,7 @@ def write_cambridge_dataset(scene, arrays, root: str) -> list:
     return written
 
 
-def phase_cambridge_driver(ak, pt, scene, arrays) -> dict:
+def phase_cambridge_driver(scene, arrays) -> dict:
     """The pose driver on a Cambridge Landmarks dataset of the render scene
     (write_cambridge_dataset): the loader's cameras held to the ones the
     file was written from (the NVM stores the camera centre, so
@@ -1092,13 +1094,13 @@ def phase_cambridge_driver(ak, pt, scene, arrays) -> dict:
             worst <= CAMBRIDGE_POSE_TOL):
         raise AssertionError(f"Cambridge loader: {len(info.train_cameras)} train, "
                              f"{len(info.test_cameras)} test cameras, pose error {worst}")
-    out = phase_pose_driver(ak, pt, scene, data, data_type="cambridge_landmark",
+    out = phase_pose_driver(scene, data, data_type="cambridge_landmark",
                             label="phase 10 pose driver (cambridge_landmark)")
     shutil.rmtree(tmp)
     return {**out, "pose_err": worst, "write_s": t_write}
 
 
-def phase_full_eval(ak, pt, data) -> dict:
+def phase_full_eval(pt, data) -> dict:
     """``apps.full_eval.main`` on a Tanks-and-Temples root whose one scene
     directory, ``truck``, is the phase 8 dataset, at FULL_EVAL_ITERS
     iterations with a random VGG LPIPS npz: train_gs (its default tiers;
@@ -1121,7 +1123,7 @@ def phase_full_eval(ak, pt, data) -> dict:
     argv = ["--tanksandtemples", tat, "--output_path", out, "--iterations",
             str(FULL_EVAL_ITERS), "--lpips_weights", npz]
     wall, launches, launches_run, steps, logged = observe_gs_run(
-        ak, pt, lambda: full_eval.main(argv))
+        lambda: full_eval.main(argv))
     n = FULL_EVAL_ITERS
     expected_run = {"b1": 0, "b2": 0, "b5": n, "b3": 0, "b3_store": n, "b4": n}
     expected = {**expected_run, "b5": n + POSE_TEST, "b3": POSE_TEST}
@@ -1247,7 +1249,7 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def phase_gui(ak, pt, scene, data, render) -> dict:
+def phase_gui(scene, data, render) -> dict:
     """The GUI server over real sockets on 127.0.0.1. (a) One viewer message
     for the render cell's camera 0 at 1232x816, decoded by the port's
     NetworkGUI.receive and rendered by render_gui_camera (B5 and B3 without
@@ -1282,13 +1284,13 @@ def phase_gui(ak, pt, scene, data, render) -> dict:
             time.sleep(0.001)
         gui_cam, do_training, _, _, keep_alive, scaling = gui.receive()
         torch.cuda.synchronize()
-        zero_launch_counts(ak, pt)
+        zero_launch_counts()
         t0 = time.perf_counter()
         img = render_gui_camera(scene, gui_cam, bg, scene.max_sh_degree,
                                 scaling_modifier=scaling)
         torch.cuda.synchronize()
         frame_ms = 1e3 * (time.perf_counter() - t0)
-        launches_a = launch_counts(ak, pt)
+        launches_a = launch_counts()
         frame = image_to_bytes(img.cpu().numpy())
         gui.send(frame, verify)
     finally:
@@ -1329,7 +1331,7 @@ def phase_gui(ak, pt, scene, data, render) -> dict:
 
     try:
         wall, launches, _, steps, _ = observe_gs_run(
-            ak, pt, lambda: train_gs.main(argv), before_run=wait_for_viewer)
+            lambda: train_gs.main(argv), before_run=wait_for_viewer)
     finally:
         th.join(GUI_CLIENT_TIMEOUT)
     check_viewer("phase 10 GUI (b)", th, out_b)
@@ -1362,7 +1364,7 @@ def phase_gui(ak, pt, scene, data, render) -> dict:
             "train_gs_viewer_ms": out_b["ms"], "train_gs_step_ms": ms, "train_gs_wall_s": wall}
 
 
-def phase_profiling(ak, run_image) -> dict:
+def phase_profiling(run_image) -> dict:
     """``utils.profiling`` on the serving path: one ``run_image()`` (an
     eval_image call with fused_attention) inside ``profiling.trace``, whose
     trace must name B1's four CUDA kernels; then ``time_fn`` of it."""
@@ -1370,11 +1372,11 @@ def phase_profiling(ak, run_image) -> dict:
 
     tmp = tempfile.mkdtemp(prefix="trace_")
     torch.cuda.synchronize()
-    ak.attention_scores_fused.launches = 0
+    zero_launch_counts()
     with profiling.trace(tmp):
         run_image()
         torch.cuda.synchronize()
-    launches = ak.attention_scores_fused.launches
+    launches = launch_counts()["b1"]
     traces = [os.path.join(d, f) for d, _, fs in os.walk(tmp) for f in fs
               if f.endswith(".json")]
     text = "".join(open(f).read() for f in traces)
@@ -1440,14 +1442,14 @@ if made:
     return {"stages": stages}
 
 
-def phase_rest_of_clis(ak, pt, scene, arrays, data, render, run_image) -> dict:
+def phase_rest_of_clis(pt, scene, arrays, data, render, run_image) -> dict:
     """Phase 10: the Cambridge pose driver, full_eval, the GUI server,
     profiling and convert."""
     t0 = time.perf_counter()
-    out = {"cambridge": phase_cambridge_driver(ak, pt, scene, arrays),
-           "full_eval": phase_full_eval(ak, pt, data),
-           "gui": phase_gui(ak, pt, scene, data, render),
-           "profiling": phase_profiling(ak, run_image),
+    out = {"cambridge": phase_cambridge_driver(scene, arrays),
+           "full_eval": phase_full_eval(pt, data),
+           "gui": phase_gui(scene, data, render),
+           "profiling": phase_profiling(run_image),
            "convert": phase_convert()}
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 10 the rest of the CLIs: ok in {out['wall_s']:.1f} s")
@@ -1645,10 +1647,10 @@ def phase_kernels(ak, gen):
     # SuperPoint's shape: padded width, patches in chunks, the same gates
     ins = b1_inputs(KERNEL_NS[0], gen, SP_P, SP_D)
     for mode in ak.MODES:
-        before = ak.attention_scores_fused.launches
+        before = launch_counts()["b1"]
         b1_case(ak, ins, mode, KERNEL_NS[0])
-        if ak.attention_scores_fused.launches - before != 2 * SP_CHUNKS:
-            raise AssertionError(f"B1 at P={SP_P}: {ak.attention_scores_fused.launches - before}"
+        if launch_counts()["b1"] - before != 2 * SP_CHUNKS:
+            raise AssertionError(f"B1 at P={SP_P}: {launch_counts()['b1'] - before}"
                                  f" launches for two calls, expected {2 * SP_CHUNKS}")
     return main_err
 
@@ -1748,12 +1750,12 @@ def phase_b2(ak, gen):
     ins = b1_inputs(n, gen, SP_P, SP_D)
     g = torch.randn(n, generator=gen, device="cuda")
     for mode in ak.MODES:
-        before = ak.attention_scores_bwd.launches
+        before = launch_counts()["b2"]
         err, out, msg = b2_case(ak, ins, g, mode)
         log(f"B2 n={n} P={SP_P} d={SP_D} mode={mode}: max_abs_err={err:.3e} (err/scale: "
             f"{msg})")
-        if ak.attention_scores_bwd.launches - before != 2 * SP_CHUNKS:
-            raise AssertionError(f"B2 at P={SP_P}: {ak.attention_scores_bwd.launches - before}"
+        if launch_counts()["b2"] - before != 2 * SP_CHUNKS:
+            raise AssertionError(f"B2 at P={SP_P}: {launch_counts()['b2'] - before}"
                                  f" launches for two calls, expected {2 * SP_CHUNKS}")
         if [tuple(t.shape) for t in out] != [(SP_P, SP_D), (n, SP_D), (SP_D, SP_D), (SP_D,)]:
             raise AssertionError(f"B2 at P={SP_P}: shapes {[tuple(t.shape) for t in out]}")
@@ -1838,7 +1840,7 @@ def run_trainer(trainer, n_steps: int):
     return steps, first
 
 
-def phase_training(ak, scene, dino_model, id_module, rng):
+def phase_training(scene, dino_model, id_module, rng):
     """The training path at full width; returns ((B1 launches, B2
     launches), per-step ms and peak GiB for fused and plain, the two
     trainers)."""
@@ -1855,10 +1857,10 @@ def phase_training(ak, scene, dino_model, id_module, rng):
         f"{time.perf_counter() - t0:.2f} s; patches per camera "
         f"{fused._feat_cache[1].sum(1).tolist()}")
 
-    ak.attention_scores_fused.launches = 0
-    ak.attention_scores_bwd.launches = 0
+    zero_launch_counts()
     steps, first = run_trainer(fused, N_TRAIN_STEPS)
-    launches = (ak.attention_scores_fused.launches, ak.attention_scores_bwd.launches)
+    counted = launch_counts()
+    launches = (counted["b1"], counted["b2"])
     expected = cfg.gradient_accumulation_steps * N_TRAIN_STEPS
     log(f"phase 4 training: B1 launches {launches[0]}, B2 launches {launches[1]} "
         f"(expected {expected} each)")
@@ -2196,7 +2198,7 @@ def layout_of(scene, cam):
     return proj, lay, {k: int(v) for k, v in sat.items()}
 
 
-def phase_render(ak, scene):
+def phase_render(scene):
     """The render path at full width: 16 render_eval calls at 1232x816 on
     the SH-3 scene, counted; one image against rasterize_scan; B5 and B3
     against their plain versions at the scene's shapes. Returns what the
@@ -2226,14 +2228,12 @@ def phase_render(ak, scene):
 
     bg = torch.tensor(RENDER_BG, device="cuda")
     torch.cuda.synchronize()
-    counters = (pt._align_compact, pt.pallas_composite_fwd, ak.attention_scores_fused,
-                ak.attention_scores_bwd)
-    for c in counters:
-        c.launches = 0
+    zero_launch_counts()
     imgs = [render_eval(scene, cam, bg, scene.max_sh_degree, rasterizer="auto")
             for cam in cams]
     torch.cuda.synchronize()
-    launches = [c.launches for c in counters]
+    counted = launch_counts()
+    launches = [counted[k] for k in ("b5", "b3", "b1", "b2")]
     log(f"phase 5 render: B5 launches {launches[0]}, B3 launches {launches[1]} "
         f"(expected {N_RENDER_CAMERAS} each); B1 {launches[2]}, B2 {launches[3]}")
     if launches != [N_RENDER_CAMERAS, N_RENDER_CAMERAS, 0, 0]:
@@ -2346,7 +2346,7 @@ class plain_compositor:
         self.pt.pallas_composite_fwd, self.pt.pallas_composite_bwd = self.saved
 
 
-def phase_gs_training(ak, pt, arrays, render, rng):
+def phase_gs_training(pt, arrays, render, rng):
     """The 3DGS training path at full width; returns what the timing phase
     and the kernel records need."""
     import dataclasses
@@ -2412,12 +2412,8 @@ def phase_gs_training(ak, pt, arrays, render, rng):
         torch.cuda.synchronize()
         logged.append((it, metrics, int(tr.state.scene.num_active())))
 
-    counters = (pt._align_compact, pt.pallas_composite_bwd, ak.attention_scores_fused,
-                ak.attention_scores_bwd)
     torch.cuda.synchronize()
-    for c in counters:
-        c.launches = 0
-    pt.pallas_composite_fwd.launches = pt.pallas_composite_fwd.store_launches = 0
+    zero_launch_counts()
     trainer.run(iterations=GS_LAST_IT, first_iteration=GS_FIRST_IT, log_every=GS_LOG_EVERY,
                 callback=callback, pre_step=pre_step, rasterizer="auto",
                 adapt_tiers_every=GS_ADAPT_EVERY)
@@ -2426,15 +2422,13 @@ def phase_gs_training(ak, pt, arrays, render, rng):
     psnr_after = trainer.eval_psnr()
     torch.cuda.synchronize()
     n_steps = GS_LAST_IT - GS_FIRST_IT + 1
-    launches = {"b5": pt._align_compact.launches, "b4": pt.pallas_composite_bwd.launches,
-                "b3_store": pt.pallas_composite_fwd.store_launches,
-                "b3": pt.pallas_composite_fwd.launches}
+    counted = launch_counts()
+    launches = {k: counted[k] for k in ("b5", "b4", "b3_store", "b3")}
     log(f"phase 6 3DGS training: {n_steps} steps; launches {json.dumps(launches)} "
         f"(expected B3 store {n_steps}, B4 {n_steps}, B5 {n_steps} + 2 evaluation renders, "
-        f"B3 without the store 2); B1 {ak.attention_scores_fused.launches}, "
-        f"B2 {ak.attention_scores_bwd.launches}")
+        f"B3 without the store 2); B1 {counted['b1']}, B2 {counted['b2']}")
     if launches != {"b5": n_steps + 2, "b4": n_steps, "b3_store": n_steps, "b3": 2} or (
-            ak.attention_scores_fused.launches or ak.attention_scores_bwd.launches):
+            counted["b1"] or counted["b2"]):
         raise AssertionError(f"3DGS training path launches {launches}")
 
     for it, m, n_active in logged:
@@ -2479,7 +2473,7 @@ def phase_gs_training(ak, pt, arrays, render, rng):
             gs.lr_dict(opt, trainer.spatial_lr_scale, GS_FIRST_IT), width=RENDER_W,
             height=RENDER_H, sh_degree=3, rasterizer="auto", with_telemetry=False)
     torch.cuda.synchronize()
-    if pt.pallas_composite_bwd.launches != n_steps:
+    if launch_counts()["b4"] != n_steps:
         raise AssertionError("the plain twin launched B4")
     worst = 0.0
     for k in PARAM_NAMES:
@@ -2566,8 +2560,6 @@ def parallel_paths(inp: dict, world: int) -> dict:
     arrays the gates compare."""
     import torch.distributed as dist
 
-    from sixdgs_torch.ops import attention_kernel as ak
-    from sixdgs_torch.ops.rasterizer import pallas_tiles as pt
     from sixdgs_torch.parallel import gs_sharding, pose_sharding
     from sixdgs_torch.parallel.mesh import make_mesh
     from sixdgs_torch.pose import trainer as ttr
@@ -2598,14 +2590,14 @@ def parallel_paths(inp: dict, world: int) -> dict:
     cams = gs_sharding.shard_camera_batch(mesh, gs.CameraArrays(*(x.cuda() for x in inp["cams"])))
     state = gs.init_train_state(GaussianScene(active=inp["start_active"].cuda(),
                                               max_sh_degree=3, **cuda(inp["start"])))
-    zero_launch_counts(ak, pt)
+    zero_launch_counts()
     a = {"ms": [], "loss": [], "grad_dropped": [], "cameras": int(cams.view.shape[0])}
     for _ in range(PAR_STEPS):
         (state, m), ms = timed(lambda: step(state, cams, bg, inp["lrs"]))
         a["ms"].append(ms)
         a["loss"].append(float(m["loss"]))
         a["grad_dropped"].append(int(m["grad_dropped"]))
-    a["launches"] = launch_counts(ak, pt)
+    a["launches"] = launch_counts()
     arrays = {k: getattr(state.scene, k) for k in ("xyz",)}
     arrays.update(xyz_grad_accum=state.xyz_grad_accum, denom=state.denom,
                   max_radii2d=state.max_radii2d)
@@ -2624,9 +2616,9 @@ def parallel_paths(inp: dict, world: int) -> dict:
     render = pose_sharding.make_sharded_render(mesh, RENDER_W, RENDER_H, 3)
     cam = gs.CameraArrays(*(x.cuda() for x in inp["render_cam"]))
     render(params, active, cam, bg)  # warm-up
-    zero_launch_counts(ak, pt)
+    zero_launch_counts()
     band, _ = timed(lambda: render(params, active, cam, bg))
-    b = {"launches": launch_counts(ak, pt), "band": band.cpu(),
+    b = {"launches": launch_counts(), "band": band.cpu(),
          "rows": pose_sharding.band_rows(RENDER_H, world, dist.get_rank()),
          "gaussians": int(active.shape[0]),
          "ms": statistics.median(timed(lambda: render(params, active, cam, bg))[1]
@@ -2659,12 +2651,12 @@ def parallel_paths(inp: dict, world: int) -> dict:
             bt, r = pose_sharding.shard_pose_inputs(mesh, batch, rays)
             step = pose_sharding.make_sharded_pose_step(mesh)
             run = lambda: step(idm, opt, dino_model, bt, r, up)  # noqa: E731
-        zero_launch_counts(ak, pt)
+        zero_launch_counts()
         aux, ms = timed(run)
         names = [n for n, _ in idm.named_parameters()]
         flat = torch.cat([p.detach().reshape(-1) for p in idm.parameters()])
         one = {"ms": ms, "loss": float(aux["loss"]), "n_nan": int(aux["n_nan"]),
-               "launches": launch_counts(ak, pt), "replicated": same_on_every_rank(flat)}
+               "launches": launch_counts(), "replicated": same_on_every_rank(flat)}
         if rank0:
             one["params"] = {n: p.detach().cpu() for n, p in idm.named_parameters()}
             one["grads"] = {n: p.grad.cpu() for n, p in zip(names, idm.parameters())}
@@ -3145,7 +3137,7 @@ def accuracy_batch_check(trainer) -> dict:
             "score_err_rel": score_err, "loss_rel": rel, "grad_err_rel": worst}
 
 
-def tools_accuracy(ak, pt) -> dict:
+def tools_accuracy() -> dict:
     """Phase 12 (a): tools.pose_accuracy_experiment through its main, fused,
     at TOOLS_ACC_ITERS iterations, held to the JAX test's assertions; then
     one batch of its trained module fused against plain."""
@@ -3155,13 +3147,13 @@ def tools_accuracy(ak, pt) -> dict:
     try:
         with ToolObserver(peaks) as obs:
             torch.cuda.synchronize()
-            zero_launch_counts(ak, pt)
+            zero_launch_counts()
             t0 = time.perf_counter()
             out = pose_accuracy_experiment.main(["--iterations", str(TOOLS_ACC_ITERS),
                                                  "--fused_attention"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = launch_counts(ak, pt)
+            launches = launch_counts()
     finally:
         peaks.stop()
     n = TOOLS_ACC_VIEWS
@@ -3208,7 +3200,7 @@ def raster_kernel_checks(pt, label: str, scene, cam, bg) -> dict:
             "b3_err": b3_err, "b4_err": b4_err}
 
 
-def tools_quality(ak, pt) -> dict:
+def tools_quality(pt) -> dict:
     """Phase 12 (b): tools.quality_workflow through its main at 400x400,
     TOOLS_QW_ITERS iterations from a sparse init with the opacity reset at
     TOOLS_QW_RESET; the trainer's densifications, resets and SH steps are
@@ -3254,12 +3246,12 @@ def tools_quality(ak, pt) -> dict:
     try:
         with GSDigests() as digests:
             torch.cuda.synchronize()
-            zero_launch_counts(ak, pt)
+            zero_launch_counts()
             t0 = time.perf_counter()
             out = quality_workflow.main(["--workdir", workdir] + TOOLS_QW_ARGS)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = launch_counts(ak, pt)
+            launches = launch_counts()
     finally:
         gs.densify_event, gs.reset_opacity, gs.GSTrainer.run = densify, reset, run
         quality_workflow.render_gt_images, train_gs.main = render_gt, train_main
@@ -3314,12 +3306,12 @@ def tools_quality(ak, pt) -> dict:
                 rasterizer="auto")
     arrays = gs.camera_arrays(cam, "cuda", with_image=True)
     lrs = gs.lr_dict(tr.opt, tr.spatial_lr_scale, TOOLS_QW_ITERS)
-    b4_before = pt.pallas_composite_bwd.launches
+    b4_before = launch_counts()["b4"]
     got, metrics = gs.train_step(start, arrays, tr.bg, lrs, **step)
     with plain_compositor(pt):
         twin, _ = gs.train_step(start, arrays, tr.bg, lrs, with_telemetry=False, **step)
     torch.cuda.synchronize()
-    if pt.pallas_composite_bwd.launches != b4_before + 1:
+    if launch_counts()["b4"] != b4_before + 1:
         raise AssertionError("the plain twin launched B4, or the kernels' step did not")
     if int(metrics["binning_grad_dropped"]):
         raise AssertionError("the trained state's step dropped its raster gradients")
@@ -3368,7 +3360,7 @@ def determinism_gate(train_argvs: list, runs: list, workdir: str) -> dict:
     return {"digests": len(second), "final": second[-1], "wall_s": wall}
 
 
-def tools_pose_stage(ak, pt) -> dict:
+def tools_pose_stage() -> dict:
     """Phase 12 (c): tools.pose_stage_artifact through its main, fused, at
     TOOLS_PS_GS_ITERS 3DGS and TOOLS_PS_POSE_ITERS pose iterations per
     backbone; each pose driver call's launches, training time and peak host
@@ -3379,16 +3371,16 @@ def tools_pose_stage(ak, pt) -> dict:
     workdir = tempfile.mkdtemp(prefix="pose_stage_")
     peaks = Peaks()
     try:
-        with ToolObserver(peaks, counts=lambda: launch_counts(ak, pt)) as obs:
+        with ToolObserver(peaks, counts=lambda: launch_counts()) as obs:
             torch.cuda.synchronize()
-            zero_launch_counts(ak, pt)
+            zero_launch_counts()
             t0 = time.perf_counter()
             art = pose_stage_artifact.main(
                 ["--workdir", workdir, "--gs_iterations", str(TOOLS_PS_GS_ITERS),
                  "--n_iterations", str(TOOLS_PS_POSE_ITERS), "--fused_attention"])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches = launch_counts(ak, pt)
+            launches = launch_counts()
     finally:
         peaks.stop()
     shutil.rmtree(workdir)
@@ -3441,11 +3433,11 @@ def tools_pose_stage(ak, pt) -> dict:
     return {"launches": launches, "wall_s": wall, "calls": calls, "artifact": brief}
 
 
-def phase_tools(ak, pt) -> dict:
+def phase_tools(pt) -> dict:
     """Phase 12: the workflow tools through their main, at a cut depth."""
     t0 = time.perf_counter()
-    out = {"accuracy": tools_accuracy(ak, pt), "quality": tools_quality(ak, pt),
-           "pose_stage": tools_pose_stage(ak, pt)}
+    out = {"accuracy": tools_accuracy(), "quality": tools_quality(pt),
+           "pose_stage": tools_pose_stage()}
     out["wall_s"] = time.perf_counter() - t0
     log(f"phase 12 workflow tools: ok in {out['wall_s']:.1f} s; {gpu_line()}")
     return out
@@ -3578,17 +3570,16 @@ def main() -> int:
                                  device="cuda"))
     torch.cuda.synchronize()
 
-    ak.attention_scores_fused.launches = 0
-    ak.attention_scores_bwd.launches = 0
+    zero_launch_counts()
     fused = [eval_image(dino_model, id_module, images[i], masks[i], c2ws[i], rays,
                         fused_attention=True) for i in range(N_IMAGES)]
     torch.cuda.synchronize()
-    launches = ak.attention_scores_fused.launches
-    log(f"phase 3 main path: B1 launches {launches}, B2 launches "
-        f"{ak.attention_scores_bwd.launches}")
-    if launches != N_IMAGES or ak.attention_scores_bwd.launches != 0:
+    counted = launch_counts()
+    launches = counted["b1"]
+    log(f"phase 3 main path: B1 launches {launches}, B2 launches {counted['b2']}")
+    if launches != N_IMAGES or counted["b2"] != 0:
         raise AssertionError(f"serving launched B1 {launches} times (expected "
-                             f"{N_IMAGES}) and B2 {ak.attention_scores_bwd.launches} (0)")
+                             f"{N_IMAGES}) and B2 {counted['b2']} (0)")
 
     for i, out in enumerate(fused):
         c2w = out["c2w"]
@@ -3621,13 +3612,13 @@ def main() -> int:
 
     # 4. training path at full width
     (train_b1, train_b2), train_timing, trainers = phase_training(
-        ak, scene, dino_model, id_module, rng)
+        scene, dino_model, id_module, rng)
 
     # 5. render path at full width
-    render = phase_render(ak, scene)
+    render = phase_render(scene)
 
     # 6. 3DGS training path at full width
-    gs_run = phase_gs_training(ak, pt, arrays, render, rng)
+    gs_run = phase_gs_training(pt, arrays, render, rng)
 
     # 7. timing
     n = KERNEL_NS[0]
@@ -3855,16 +3846,16 @@ def main() -> int:
 
     # 8. the pose driver at full width, DINO and SuperPoint, on one dataset
     data = write_dataset(scene, arrays)
-    driver = phase_pose_driver(ak, pt, scene, data)
-    sp_driver = phase_pose_driver(ak, pt, scene, data, backbone="superpoint")
+    driver = phase_pose_driver(scene, data)
+    sp_driver = phase_pose_driver(scene, data, backbone="superpoint")
 
     # 9. the 3DGS apps at full width on the same dataset
-    apps = phase_gs_apps(ak, pt, scene, data, render, gs_run)
+    apps = phase_gs_apps(pt, scene, data, render, gs_run)
 
     # 10. the rest of the CLIs at full width: the Cambridge pose driver,
     # full_eval, the GUI server, profiling and convert
     rest = phase_rest_of_clis(
-        ak, pt, scene, arrays, data, render,
+        pt, scene, arrays, data, render,
         lambda: eval_image(dino_model, id_module, images[0], masks[0], c2ws[0], rays,
                            fused_attention=True))
     shutil.rmtree(os.path.dirname(data))
@@ -3876,7 +3867,7 @@ def main() -> int:
                           "dino": dino_model, "id_module": id_module})
 
     # 12. the workflow tools through their main, at a cut depth
-    tools = phase_tools(ak, pt)
+    tools = phase_tools(pt)
     acc, qw, ps = (tools[k]["launches"] for k in ("accuracy", "quality", "pose_stage"))
 
     records = [{

@@ -21,6 +21,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from sixdgs_torch.utils.profiling import count, span
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -59,20 +61,24 @@ def build(name: str, defines: tuple = ()) -> float:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *_flags(defines), "-o", str(tmp),
-                           str(CSRC / f"{name}.cu")],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    with span("setup.kernel_build"):
+        proc = subprocess.run([_nvcc(), *_flags(defines), "-o", str(tmp),
+                               str(CSRC / f"{name}.cu")],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     out.with_suffix(".log").write_bytes(proc.stdout)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}:\n"
                            + proc.stdout.decode(errors="replace"))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    count("kernel.builds")
     return time.perf_counter() - t0
 
 
 def library(name: str, defines: tuple = ()) -> ctypes.CDLL:
-    """``csrc/<name>.cu`` loaded, built first if needed."""
+    """``csrc/<name>.cu`` loaded, built first if needed; counted as
+    ``kernel.loads`` (and a build as ``kernel.builds``)."""
     build(name, defines)
+    count("kernel.loads")
     return ctypes.CDLL(str(_lib_path(name, defines)))
 
 

@@ -57,8 +57,11 @@ is zero-padded to 384 and the patches split into chunks of 256, the last
 padded with zero rows and pmask 0, one launch per chunk with the true
 sqrt(d) (``chunked_fwd``, ``chunked_bwd``). Scores and every gradient are
 sums over patches, so the chunks' sums add up exactly by linearity; the
-DINO shape is one launch of the inputs themselves. Each counter counts
-launches, so a SuperPoint call counts 4.
+DINO shape is one launch of the inputs themselves. The counters
+``kernel.b1`` (four CUDA kernels a launch: b1_gemm_tile, b1_pack_q,
+b1_stats, b1_emit) and ``kernel.b2`` (ten: four b2_gemm_tile, b2_pack_q,
+b2_c, b2_grad, three b2_sum_parts) of ``utils.profiling`` count launches on
+CUDA tensors, so a SuperPoint call counts 4.
 
 Precision ``mode``: both kernels run their P N d products on the tensor
 cores (mma.sync over bf16 pieces, ``csrc/mma_pieces.cuh``) with f32
@@ -82,6 +85,7 @@ import torch
 import torch.nn.functional as F
 
 from sixdgs_torch.ops import _build
+from sixdgs_torch.utils.profiling import count
 
 NEG = -9e15
 MODES = ("f32", "bf16", "bf16_split3")
@@ -284,7 +288,7 @@ def _launch_fwd(q, ray_feats, wk, bk, pmask, valid, mode, sqrt_d):
     scores, m, s = new(N), new(P, 1), new(P, 1)
     _build.launch(lib.b1_attention_scores_fwd, *ins, scores, m, s,
                   new(lib.b1_scratch_floats(N)), N, d, P, _MODE_ARG[mode], sqrt_d)
-    attention_scores_fused.launches += 1
+    count("kernel.b1")
     return scores, m, s
 
 
@@ -299,7 +303,7 @@ def _launch_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode, sqrt_d):
     dfeats, dq, dwk, dbk = new(N, d), new(P, d), new(d, d), new(d)
     _build.launch(lib.b2_attention_scores_bwd, *ins, dfeats, dq, dwk, dbk,
                   new(lib.b2_scratch_floats(N)), N, d, P, _MODE_ARG[mode], sqrt_d)
-    attention_scores_bwd.launches += 1
+    count("kernel.b2")
     return dq, dfeats, dwk, dbk
 
 
@@ -354,11 +358,6 @@ def attention_scores_bwd(q, ray_feats, wk, bk, patch_mask, ray_valid, m, s, g,
                                       g.to(torch.float32), mode)
 
 
-# launches on CUDA tensors; each is ten CUDA kernels (four b2_gemm_tile,
-# b2_pack_q, b2_c, b2_grad, three b2_sum_parts)
-attention_scores_bwd.launches = 0
-
-
 class _FusedScores(torch.autograd.Function):
     """B1 forward, B2 backward (the TPU package's custom VJP). Saves the
     same residuals as the TPU kernel: the inputs and the per-patch m, s."""
@@ -395,11 +394,6 @@ def attention_scores_fused(q, ray_feats, wk, bk, patch_mask, ray_valid,
     """
     pmask, valid = _masks(q, ray_feats, patch_mask, ray_valid)
     return _FusedScores.apply(q, ray_feats, wk, bk, pmask, valid, mode)
-
-
-# launches on CUDA tensors; each is four CUDA kernels (b1_gemm_tile,
-# b1_pack_q, b1_stats, b1_emit)
-attention_scores_fused.launches = 0
 
 
 def fused_ray_scores(id_module, img_feats_pe, ray_feats, patch_mask, ray_valid,

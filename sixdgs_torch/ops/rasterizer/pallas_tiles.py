@@ -17,11 +17,12 @@ map one to one, but its kernels are CUDA C++ for sm_90a:
     TPU kernel ``_bwd_kernel``: the per-pair gradients [16, NC] of the
     compositor, with the transmittance replayed or reread from the store.
 
-On a CUDA tensor each wrapper launches its kernel (and counts the launch in
-its ``.launches``); on a CPU tensor it runs its plain PyTorch version
-(``align_compact_plain``, ``composite_fwd_plain``,
-``composite_bwd_plain``). A build or launch failure raises; nothing falls
-back to the plain version on the card.
+On a CUDA tensor each wrapper launches its kernel and counts the launch in
+a counter of ``utils.profiling`` (``kernel.b5``; ``kernel.b3``, or
+``kernel.b3_store`` with the transmittance store; ``kernel.b4``); on a CPU
+tensor it runs its plain PyTorch version (``align_compact_plain``,
+``composite_fwd_plain``, ``composite_bwd_plain``). A build or launch
+failure raises; nothing falls back to the plain version on the card.
 
 ``rasterize_pallas`` is the whole path: depth argsort and record permute,
 three-tier binning with conic culling (on detached inputs), one sort of
@@ -45,6 +46,7 @@ from typing import NamedTuple
 import torch
 
 from sixdgs_torch.ops import _build
+from sixdgs_torch.utils.profiling import count
 from sixdgs_torch.ops.rasterizer.compositing import ALPHA_MAX, ALPHA_MIN, T_EPS
 from sixdgs_torch.ops.rasterizer.projection import ProjectedGaussians
 from sixdgs_torch.ops.rasterizer.tiles import (
@@ -145,11 +147,8 @@ def _align_compact(gidx_c, starts, starts_al, n_tiles: int, sentinel: int):
         raise ValueError("_align_compact: gidx_c and out must be 16-byte aligned")
     _build.launch(_library("align_compact").b5_align_compact_launch, *ins,
                   n_tiles, sentinel, nc, out)
-    _align_compact.launches += 1
+    count("kernel.b5")
     return out
-
-
-_align_compact.launches = 0  # B5 launches on CUDA tensors
 
 
 def _aligned_starts(starts: torch.Tensor, nc: int):
@@ -349,14 +348,10 @@ def pallas_composite_fwd(records, starts, counts, nx: int, ny: int, bg,
            n_tiles, nx, bg.contiguous(), out, texcl)
     _build.launch(_library("composite_fwd").b3_composite_fwd_launch, *ins)
     if store_t:
-        pallas_composite_fwd.store_launches += 1
+        count("kernel.b3_store")
         return out, texcl
-    pallas_composite_fwd.launches += 1
+    count("kernel.b3")
     return out
-
-
-pallas_composite_fwd.launches = 0  # B3 launches on CUDA tensors, store_t=False
-pallas_composite_fwd.store_launches = 0  # B3 launches with store_t=True
 
 
 def composite_bwd_plain(records, starts, counts, nx: int, ny: int, out, dout,
@@ -434,11 +429,8 @@ def pallas_composite_bwd(records, starts, counts, nx: int, ny: int, out, dout,
            starts.to(torch.int32).contiguous(), counts.to(torch.int32).contiguous(),
            n_tiles, nx, out, dout, texcl, dpairs)
     _build.launch(_library("composite_bwd").b4_composite_bwd_launch, *ins)
-    pallas_composite_bwd.launches += 1
+    count("kernel.b4")
     return dpairs
-
-
-pallas_composite_bwd.launches = 0  # B4 launches on CUDA tensors
 
 
 class _Composite(torch.autograd.Function):

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sixdgs_torch.utils.profiling import span
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 RESIZE = 256
@@ -92,6 +94,7 @@ def image_position_encoding(grid: int = PATCH_GRID, freqs: int = 3,
     return torch.tensor(_position_encoding_np(grid, freqs), device=device)
 
 
+@span("pose.backbone")
 def backbone_features(
     dino_model,
     img: torch.Tensor,
@@ -117,8 +120,12 @@ def backbone_features(
     if backbone not in ("dino", "superpoint"):
         raise ValueError(f"backbone must be 'dino' or 'superpoint', got {backbone!r}")
     grid = PATCH_GRID_SP if backbone == "superpoint" else PATCH_GRID
-    feats = dino_model.forward_features(preprocess_image(img))["x_norm_patchtokens"]
-    patch_mask = preprocess_mask(mask, grid).reshape(-1)
+    # two preprocessing spans, so that the device gets its work in this order
+    with span("pose.preprocess"):
+        x = preprocess_image(img)
+    feats = dino_model.forward_features(x)["x_norm_patchtokens"]
+    with span("pose.preprocess"):
+        patch_mask = preprocess_mask(mask, grid).reshape(-1)
     pe = image_position_encoding(grid, device=feats.device).to(feats.dtype)
     feats_pe = torch.cat([feats, pe], dim=-1)  # [G*G, D+14]
     fmap = feats.reshape(grid, grid, feats.shape[-1]).permute(2, 0, 1)

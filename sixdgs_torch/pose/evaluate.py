@@ -19,9 +19,11 @@ from sixdgs_torch.pose.id_module import score_image
 from sixdgs_torch.pose.loss import distance_score_loss
 from sixdgs_torch.pose.solver import angular_error_deg, solve_pose, translation_error
 from sixdgs_torch.rays.engine import Rays
+from sixdgs_torch.utils.profiling import count, span
 
 
 @torch.no_grad()
+@span("pose.eval_image")
 def eval_image(
     dino_model,
     id_module,
@@ -42,16 +44,17 @@ def eval_image(
     """
     out = score_image(dino_model, id_module, img, mask, rays,
                       fused_attention=fused_attention, backbone=backbone)
-    loss_score, target = distance_score_loss(
-        out.scores, gt_c2w, rays.ori, rays.dir, rays.valid, out.n_patches
-    )
-    # recall@k: overlap between top-k predicted and top-k target rays (:122-124)
-    neg_inf = float("-inf")
-    pred_top = torch.topk(torch.where(rays.valid, out.scores, neg_inf), k).indices
-    tgt_top = torch.topk(torch.where(rays.valid, target, neg_inf), k).indices
-    recall = torch.mean(
-        torch.any(pred_top[:, None] == tgt_top[None, :], dim=-1).to(torch.float32)
-    )
+    with span("pose.loss"):
+        loss_score, target = distance_score_loss(
+            out.scores, gt_c2w, rays.ori, rays.dir, rays.valid, out.n_patches
+        )
+        # recall@k: overlap between top-k predicted and top-k target rays (:122-124)
+        neg_inf = float("-inf")
+        pred_top = torch.topk(torch.where(rays.valid, out.scores, neg_inf), k).indices
+        tgt_top = torch.topk(torch.where(rays.valid, target, neg_inf), k).indices
+        recall = torch.mean(
+            torch.any(pred_top[:, None] == tgt_top[None, :], dim=-1).to(torch.float32)
+        )
     scores = target if use_target_scores else out.scores
     sol = solve_pose(scores, rays.ori, rays.dir, out.cam_up, rays.valid, k=k)
     t_err = translation_error(gt_c2w[:3, 3], sol.c2w[:3, 3])
@@ -106,32 +109,38 @@ def test_pose_estimation(
     t_errs, a_errs, losses, recalls = [], [], [], []
     start = time.time()
     for img_idx, info in enumerate(cam_infos):
-        img, mask = prepare_image_mask(info)
-        gt = info.c2w()
-        out = eval_image(
-            dino_model, id_module, torch.tensor(img, device=dev),
-            torch.tensor(mask, device=dev),
-            torch.tensor(gt, dtype=torch.float32, device=dev), rays, k=k,
-            use_target_scores=use_target_scores, fused_attention=fused_attention,
-            backbone=backbone,
-        )
-        t_errs.append(float(out["translation_error"]))
-        a_errs.append(float(out["angular_error"]))
-        losses.append(float(out["loss_score"]))
-        recalls.append(float(out["recall"]))
-        results.append(
-            {
-                "sequence_id": sequence_id,
-                "category_name": category_id,
-                "frame_id": img_idx,
-                "loss": float(out["mean_weight"]),
-                "scores_loss": float(out["loss_score"]),
-                "recall": float(out["recall"]),
-                "total_optimization_time_in_ms": 0.0,
-                "pred_c2w": out["c2w"].cpu().numpy().tolist(),
-                "gt_c2w": gt.tolist(),
-            }
-        )
+        with span("val.view"):
+            with span("val.prepare"):
+                img, mask = prepare_image_mask(info)
+                gt = info.c2w()
+            with span("val.upload"):
+                img_d = torch.tensor(img, device=dev)
+                mask_d = torch.tensor(mask, device=dev)
+                gt_d = torch.tensor(gt, dtype=torch.float32, device=dev)
+            out = eval_image(
+                dino_model, id_module, img_d, mask_d, gt_d, rays, k=k,
+                use_target_scores=use_target_scores, fused_attention=fused_attention,
+                backbone=backbone,
+            )
+            with span("val.read"):
+                t_errs.append(float(out["translation_error"]))
+                a_errs.append(float(out["angular_error"]))
+                losses.append(float(out["loss_score"]))
+                recalls.append(float(out["recall"]))
+                results.append(
+                    {
+                        "sequence_id": sequence_id,
+                        "category_name": category_id,
+                        "frame_id": img_idx,
+                        "loss": float(out["mean_weight"]),
+                        "scores_loss": float(out["loss_score"]),
+                        "recall": float(out["recall"]),
+                        "total_optimization_time_in_ms": 0.0,
+                        "pred_c2w": out["c2w"].cpu().numpy().tolist(),
+                        "gt_c2w": gt.tolist(),
+                    }
+                )
+                count("host.reads", 8)  # the eight float() and .cpu() reads above
     total = time.time() - start
     n = max(len(cam_infos), 1)
     return (

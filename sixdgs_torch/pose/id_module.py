@@ -19,6 +19,7 @@ import torch
 from sixdgs_torch.pose.backbone import backbone_features
 from sixdgs_torch.pose.modules import IdModule, attention_scores
 from sixdgs_torch.rays.engine import Rays
+from sixdgs_torch.utils.profiling import span
 
 
 class ScoreOutput(NamedTuple):
@@ -68,19 +69,22 @@ def score_image_cached(id_module: IdModule, feats_pe, patch_mask, fmap,
     ([N, D], the ray MLP's output) may be passed in when several images are
     scored against one ray set; it is computed here otherwise."""
     if ray_feats is None:
-        ray_feats = id_module.ray_mlp(rays.ori, rays.dir, rays.rgb)
-    if fused_attention:
-        from sixdgs_torch.ops.attention_kernel import fused_ray_scores
+        with span("pose.ray_mlp"):
+            ray_feats = id_module.ray_mlp(rays.ori, rays.dir, rays.rgb)
+    with span("pose.scores"):
+        if fused_attention:
+            from sixdgs_torch.ops.attention_kernel import fused_ray_scores
 
-        scores = fused_ray_scores(id_module, feats_pe, ray_feats, patch_mask,
-                                  rays.valid)
-        attn = feats_pe.new_zeros((0, 0))
-    else:
-        attn = attention_scores(id_module.attention, feats_pe, ray_feats, rays.valid)
-        # per-ray score = sum over *masked* patches (identification_module.py:82)
-        scores = torch.sum(attn * patch_mask[:, None], dim=0)
-    cam_up = id_module.cam_up(fmap)
-    cam_up = cam_up / torch.clamp_min(torch.linalg.norm(cam_up), 1e-12)
+            scores = fused_ray_scores(id_module, feats_pe, ray_feats, patch_mask,
+                                      rays.valid)
+            attn = feats_pe.new_zeros((0, 0))
+        else:
+            attn = attention_scores(id_module.attention, feats_pe, ray_feats, rays.valid)
+            # per-ray score = sum over *masked* patches (identification_module.py:82)
+            scores = torch.sum(attn * patch_mask[:, None], dim=0)
+    with span("pose.cam_up"):
+        cam_up = id_module.cam_up(fmap)
+        cam_up = cam_up / torch.clamp_min(torch.linalg.norm(cam_up), 1e-12)
     return ScoreOutput(
         scores=scores,
         attention=attn,

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from sixdgs_torch.ops.lines import exclude_negatives, line_intersection_wls, make_rotation_mat
+from sixdgs_torch.utils.profiling import span
 
 
 class PoseSolution(NamedTuple):
@@ -32,6 +33,7 @@ def _cross(a, b):
     return torch.linalg.cross(a, b, dim=-1)
 
 
+@span("pose.solve")
 def solve_pose(
     scores: torch.Tensor,
     rays_ori: torch.Tensor,

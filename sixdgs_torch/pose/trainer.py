@@ -39,6 +39,7 @@ from sixdgs_torch.pose.id_module import compute_image_features, score_image_cach
 from sixdgs_torch.pose.loss import cam_up_loss, distance_score_loss
 from sixdgs_torch.rays.engine import Rays
 from sixdgs_torch.utils.config import PoseEstimationConfig
+from sixdgs_torch.utils.profiling import count, span
 
 
 class PoseBatch(NamedTuple):
@@ -176,7 +177,8 @@ def batch_loss_cached(id_module, fbatch: FeatureBatch, rays: Rays,
                       model_up: torch.Tensor, fused_attention: bool = False):
     """Mean loss over the image batch from precomputed backbone features:
     (total, aux) with aux = {loss, loss_score, cam_up, n_nan}."""
-    ray_feats = id_module.ray_mlp(rays.ori, rays.dir, rays.rgb)
+    with span("pose.ray_mlp"):
+        ray_feats = id_module.ray_mlp(rays.ori, rays.dir, rays.rgb)
     losses, score_losses, up_losses = [], [], []
     for b in range(fbatch.c2w.shape[0]):
         out = score_image_cached(id_module, fbatch.feats_pe[b], fbatch.patch_mask[b],
@@ -213,14 +215,17 @@ def batch_loss(id_module, dino_model, batch: PoseBatch, rays: Rays,
 
 def _step(id_module, optimizer, loss_fn) -> Dict[str, torch.Tensor]:
     optimizer.zero_grad(set_to_none=True)
-    loss, aux = loss_fn()
-    loss.backward()
-    # zero NaN/inf gradients (a NaN image is skipped by the masked mean; this
-    # guards batches that are NaN throughout)
-    for p in id_module.parameters():
-        if p.grad is not None:
-            torch.nan_to_num_(p.grad, nan=0.0, posinf=0.0, neginf=0.0)
-    optimizer.step()
+    with span("train.forward"):
+        loss, aux = loss_fn()
+    with span("train.backward"):
+        loss.backward()
+        # zero NaN/inf gradients (a NaN image is skipped by the masked mean;
+        # this guards batches that are NaN throughout)
+        for p in id_module.parameters():
+            if p.grad is not None:
+                torch.nan_to_num_(p.grad, nan=0.0, posinf=0.0, neginf=0.0)
+    with span("train.optimizer"):
+        optimizer.step()
     return {k: v.detach() for k, v in aux.items()}
 
 
@@ -327,7 +332,8 @@ class PoseTrainer:
         self.rays: Optional[Rays] = None
         self.running_loss = 0.0
         # host-side cache of composited images/masks
-        self._img_cache = [prepare_image_mask(c) for c in train_cam_infos]
+        with span("setup.image_cache"):
+            self._img_cache = [prepare_image_mask(c) for c in train_cam_infos]
         # frozen-backbone feature cache: the reference recomputes DINO
         # features on every accumulation step (train.py:146); they are
         # constants per camera while the backbone is locked, so they are
@@ -335,9 +341,10 @@ class PoseTrainer:
         self.cache_features = cache_features
         self._feat_cache = None
         if cache_features:
-            self._feat_cache = _features(
-                dino_model, *self._device_images(range(len(train_cam_infos))),
-                backbone)
+            with span("setup.feature_cache"):
+                self._feat_cache = _features(
+                    dino_model, *self._device_images(range(len(train_cam_infos))),
+                    backbone)
 
     def _device_images(self, idx):
         imgs = torch.tensor(np.stack([self._img_cache[i][0] for i in idx]),
@@ -378,31 +385,39 @@ class PoseTrainer:
         validate_every = (validate_every if validate_every is not None
                           else cfg.val_every_n_iterations)
         for it in range(start_iteration, n_iterations):
-            if it % cfg.renewal_every_n_iterations == 0 or self.rays is None:
-                self._regen_rays()
-            batch = self._sample_batch()
-            if self.cache_features:
-                aux = pose_train_step_cached(self.id_module, self.optimizer, batch,
-                                             self.rays, self.model_up,
-                                             fused_attention=self.fused_attention)
-            else:
-                aux = pose_train_step(self.id_module, self.optimizer, self.dino_model,
-                                      batch, self.rays, self.model_up,
-                                      backbone=self.backbone,
-                                      fused_attention=self.fused_attention)
-            self.running_loss += float(aux["loss"])
-            if it % log_every == log_every - 1 and (callback is not None or writer is not None):
-                a = {k: v.item() for k, v in aux.items()}
-                if callback is not None:
-                    callback(it, a, self)
-                if writer is not None:
-                    writer.scalar("id_module/loss", a["loss"], it)
-                    writer.scalar("id_module/loss_score", a["loss_score"], it)
-                    writer.scalar("id_module/cam_up_loss", a["cam_up"], it)
+            with span("train.step"):
+                if it % cfg.renewal_every_n_iterations == 0 or self.rays is None:
+                    with span("train.renewal"):
+                        self._regen_rays()
+                with span("train.batch"):
+                    batch = self._sample_batch()
+                if self.cache_features:
+                    aux = pose_train_step_cached(self.id_module, self.optimizer, batch,
+                                                 self.rays, self.model_up,
+                                                 fused_attention=self.fused_attention)
+                else:
+                    aux = pose_train_step(self.id_module, self.optimizer, self.dino_model,
+                                          batch, self.rays, self.model_up,
+                                          backbone=self.backbone,
+                                          fused_attention=self.fused_attention)
+                logged = (it % log_every == log_every - 1
+                          and (callback is not None or writer is not None))
+                with span("train.read"):
+                    self.running_loss += float(aux["loss"])
+                    a = {k: v.item() for k, v in aux.items()} if logged else {}
+                    count("host.reads", 1 + len(a))
+                if logged:
+                    if callback is not None:
+                        callback(it, a, self)
+                    if writer is not None:
+                        writer.scalar("id_module/loss", a["loss"], it)
+                        writer.scalar("id_module/loss_score", a["loss_score"], it)
+                        writer.scalar("id_module/cam_up_loss", a["cam_up"], it)
             if validate_every and (it % validate_every == validate_every - 1):
                 self.validate(it, test_cam_infos=test_cam_infos, writer=writer)
         return self.id_module
 
+    @span("train.validate")
     def validate(self, iteration: int, test_cam_infos=None, writer=None,
                  max_images: Optional[int] = None):
         """train.py:214-303 analogue: target-score solve on train/test views."""

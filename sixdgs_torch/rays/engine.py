@@ -26,6 +26,7 @@ import torch
 from sixdgs_torch.ops.sh import sh_to_color
 from sixdgs_torch.rays.normals import estimate_normals
 from sixdgs_torch.rays.quadricell import mask_degraded_ellipsoids, quadricell_points
+from sixdgs_torch.utils.profiling import span
 
 
 class Rays(NamedTuple):
@@ -130,6 +131,7 @@ def generate_rays(
     )
 
 
+@span("rays.cast")
 def generate_rays_from_scene(scene, generator=None, cfg=None, sh_degree=None,
                              **overrides):
     """Rays over a GaussianScene (pose_estimation explore_model,

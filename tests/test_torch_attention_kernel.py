@@ -18,6 +18,12 @@ from sixdgs_tpu.ops import attention_kernel as jak
 from sixdgs_tpu.pose import modules as jmod
 from sixdgs_torch import weights
 from sixdgs_torch.ops import attention_kernel as tak
+from sixdgs_torch.utils import profiling
+
+
+def _launches(kernel):
+    """Launches of ``kernel`` (b1-b5, b3_store) counted so far on CUDA tensors."""
+    return profiling.snapshot()["counters"].get("kernel." + kernel, 0)
 
 
 def _t(x):
@@ -290,9 +296,9 @@ class TestWrapperContract:
                                      torch.ones(64), mode="tf32")
 
     def test_cpu_path_does_not_count_launches(self):
-        before = (tak.attention_scores_fused.launches, tak.attention_scores_bwd.launches)
+        before = (_launches("b1"), _launches("b2"))
         leaves = [x.requires_grad_(True) for x in map(_t, _problem(N=64, n_invalid=4)[:4])]
         scores = tak.attention_scores_fused(*leaves, *map(_t, _problem(N=64, n_invalid=4)[4:]))
         scores.sum().backward()
-        assert (tak.attention_scores_fused.launches,
-                tak.attention_scores_bwd.launches) == before
+        assert (_launches("b1"),
+                _launches("b2")) == before

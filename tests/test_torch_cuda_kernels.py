@@ -20,7 +20,13 @@ import torch
 
 from sixdgs_torch.ops import attention_kernel as tak
 from sixdgs_torch.ops.rasterizer import pallas_tiles as tpt
+from sixdgs_torch.utils import profiling
 from align_layouts import ALIGN_LAYOUTS, align_layout  # tests/align_layouts.py
+
+
+def _launches(kernel):
+    """Launches of ``kernel`` (b1-b5, b3_store) counted so far on CUDA tensors."""
+    return profiling.snapshot()["counters"].get("kernel." + kernel, 0)
 
 
 def _b1_inputs(seed, P=256, d=384, N=5000, n_invalid=700):
@@ -45,10 +51,10 @@ class TestAttentionScoresKernel:
     # another order can round apart
     @staticmethod
     def _check(ins, mode, tol, launches=1):
-        before = tak.attention_scores_fused.launches
+        before = _launches("b1")
         s, m, ss = tak.attention_scores_fwd(*ins, mode=mode)
         torch.cuda.synchronize()
-        assert tak.attention_scores_fused.launches == before + launches
+        assert _launches("b1") == before + launches
         rs, rm, rss = tak.attention_scores_plain(*ins, mode=mode)
         scale = rs.abs().max().item()
         assert (s - rs).abs().max().item() <= tol * scale
@@ -131,16 +137,16 @@ class TestAttentionScoresKernel:
             pytest.skip("needs a CUDA GPU and nvcc")
         ins = _b1_inputs(seed=15, N=32768)
         pmask, valid = ins[4].float(), ins[5]
-        before = tak.attention_scores_fused.launches
+        before = _launches("b1")
         got = tak.attention_scores_fwd(*ins, mode=mode)
-        assert tak.attention_scores_fused.launches == before + 1
+        assert _launches("b1") == before + 1
         direct = tak._launch_fwd(*ins[:4], pmask, valid, mode, 384 ** 0.5)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, direct))
         g = torch.randn(32768, device="cuda")
-        before = tak.attention_scores_bwd.launches
+        before = _launches("b2")
         got = tak.attention_scores_bwd(*ins, got[1], got[2], g, mode=mode)
-        assert tak.attention_scores_bwd.launches == before + 1
+        assert _launches("b2") == before + 1
         direct = tak._launch_bwd(*ins[:4], pmask, valid, direct[1], direct[2], g, mode,
                                  384 ** 0.5)
         torch.cuda.synchronize()
@@ -168,10 +174,10 @@ def _b2_check(ins, mode, tol, seed, launches=1):
     g = torch.tensor(np.random.default_rng(seed).normal(size=ins[1].shape[0]),
                      dtype=torch.float32, device="cuda")
     _, m, s = tak.attention_scores_fwd(*ins, mode=mode)
-    before = tak.attention_scores_bwd.launches
+    before = _launches("b2")
     out = tak.attention_scores_bwd(*ins, m, s, g, mode=mode)
     torch.cuda.synchronize()
-    assert tak.attention_scores_bwd.launches == before + launches
+    assert _launches("b2") == before + launches
     ref = tak.attention_scores_bwd_plain(*ins[:4], ins[4].float(), ins[5], m, s, g,
                                          mode=mode)
     for name, a, b in zip(("dq", "dfeats", "dwk", "dbk"), out, ref):
@@ -232,9 +238,9 @@ class TestAttentionScoresBackwardKernel:
         if not torch.cuda.is_available():
             pytest.skip("needs a CUDA GPU and nvcc")
         ins = _b1_inputs(seed=16, P=784, d=256, N=32768)
-        before = tak.attention_scores_bwd.launches
+        before = _launches("b2")
         first = _b2_check(ins, mode, tol, seed=17, launches=4)
-        assert tak.attention_scores_bwd.launches == before + 4
+        assert _launches("b2") == before + 4
         assert [tuple(t.shape) for t in first] == [(784, 256), (32768, 256), (256, 256),
                                                    (256,)]
         assert (first[1][-700:] == 0).all()
@@ -304,11 +310,11 @@ class TestAlignCompactKernel:
             }[case]
             gidx, starts, starts_al = _layout(counts, nc)
         n_tiles = len(counts)
-        before = tpt._align_compact.launches
+        before = _launches("b5")
         got = tpt._align_compact(gidx, starts, starts_al, n_tiles, 100_000)
         again = tpt._align_compact(gidx, starts, starts_al, n_tiles, 100_000)
         torch.cuda.synchronize()
-        assert tpt._align_compact.launches == before + 2
+        assert _launches("b5") == before + 2
         want = tpt.align_compact_plain(gidx, starts, starts_al, n_tiles, 100_000)
         assert got.dtype == torch.int32 and got.shape == want.shape
         assert torch.equal(got, want)
@@ -384,10 +390,10 @@ class TestCompositeKernel:
         }[case]
         rec, starts, counts_t = _records(counts, nx, ny, opacity=opacity)
         bg = torch.tensor([0.1, 0.5, 0.9], device="cuda")
-        before = tpt.pallas_composite_fwd.launches
+        before = _launches("b3")
         got = tpt.pallas_composite_fwd(rec, starts, counts_t, nx, ny, bg)
         torch.cuda.synchronize()
-        assert tpt.pallas_composite_fwd.launches == before + 1
+        assert _launches("b3") == before + 1
         want = tpt.composite_fwd_plain(rec, starts, counts_t, nx, ny, bg)
         assert got.shape == (nx * ny, 256, 3) and torch.isfinite(got).all()
         _b3_close(got, want)
@@ -415,17 +421,17 @@ class TestCompositeKernel:
             k: torch.tensor(v, dtype=torch.int32 if k == "radii" else torch.float32,
                             device=d) for k, v in fields.items()}) for d in ("cpu", "cuda")}
         bg = torch.tensor([0.2, 0.3, 0.4])
-        b3, b5 = tpt.pallas_composite_fwd.launches, tpt._align_compact.launches
+        b3, b5 = _launches("b3"), _launches("b5")
         got = tpt.rasterize_pallas(proj["cuda"], W, H, bg.cuda(), t_max=64)
         torch.cuda.synchronize()
-        assert (tpt.pallas_composite_fwd.launches, tpt._align_compact.launches) == (b3 + 1,
+        assert (_launches("b3"), _launches("b5")) == (b3 + 1,
                                                                                     b5 + 1)
         want = tpt.rasterize_pallas(proj["cpu"], W, H, bg, t_max=64)
         assert got.shape == (3, H, W)
         _b3_close(got.cpu(), want)
         # gradients through B3 (store) and B4 against the plain versions
         grads = {}
-        b3s, b4 = tpt.pallas_composite_fwd.store_launches, tpt.pallas_composite_bwd.launches
+        b3s, b4 = _launches("b3_store"), _launches("b4")
         for d in ("cpu", "cuda"):
             leaves = [getattr(proj[d], f).clone().requires_grad_()
                       for f in ("means2d", "conics", "colors", "opacities")]
@@ -434,7 +440,7 @@ class TestCompositeKernel:
             img = tpt.rasterize_pallas(p, W, H, bg.to(d), t_max=64)
             grads[d] = torch.autograd.grad(img.square().sum(), leaves)
         torch.cuda.synchronize()
-        assert (tpt.pallas_composite_fwd.store_launches, tpt.pallas_composite_bwd.launches) == (
+        assert (_launches("b3_store"), _launches("b4")) == (
             b3s + 1, b4 + 1)
         for g, w in zip(grads["cuda"], grads["cpu"]):
             assert torch.isfinite(g).all()
@@ -472,10 +478,10 @@ class TestCompositeBackwardKernel:
         cumulative one)."""
         _need_card()
         rec, starts, counts, nx, ny, bg = self._inputs(case)
-        before = tpt.pallas_composite_fwd.store_launches
+        before = _launches("b3_store")
         out, tex = tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg, store_t=True)
         torch.cuda.synchronize()
-        assert tpt.pallas_composite_fwd.store_launches == before + 1
+        assert _launches("b3_store") == before + 1
         assert torch.equal(out, tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg))
         assert tex.shape == (rec.shape[1] // 128, 256, 128)
         walk = tpt._SegmentWalk(rec, starts, counts, nx, ny)
@@ -498,13 +504,13 @@ class TestCompositeBackwardKernel:
         out, tex = tpt.pallas_composite_fwd(rec, starts, counts, nx, ny, bg, store_t=True)
         dout = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(0),
                            device="cuda")
-        before = tpt.pallas_composite_bwd.launches
+        before = _launches("b4")
         replay = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
         stored = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout,
                                           aligned=True, texcl=tex)
         again = tpt.pallas_composite_bwd(rec, starts, counts, nx, ny, out, dout)
         torch.cuda.synchronize()
-        assert tpt.pallas_composite_bwd.launches == before + 3
+        assert _launches("b4") == before + 3
         assert torch.equal(replay, stored) and torch.equal(replay, again)
         want = tpt.composite_bwd_plain(rec, starts, counts, nx, ny, out, dout)
         assert torch.isfinite(replay).all() and not replay[9:].any()
@@ -538,15 +544,15 @@ class TestCompositeBackwardKernel:
                                     image=rng.uniform(size=(3, H, W)).astype(np.float32))
         lrs = gs.lr_dict(OptimizationConfig(), 4.0, 1)
         res = {}
-        counters = (tpt._align_compact, tpt.pallas_composite_bwd)
-        before = [c.launches for c in counters] + [tpt.pallas_composite_fwd.store_launches]
+        kernels = ("b5", "b4", "b3_store")
+        before = [_launches(k) for k in kernels]
         for d in ("cpu", "cuda"):
             state = gs.init_train_state(from_arrays(arrays, 3, capacity=512, device=d))
             res[d] = gs.train_step(state, gs.camera_arrays(cam, d, with_image=True),
                                    torch.full((3,), 0.2, device=d), lrs, width=W, height=H,
                                    sh_degree=3)
         torch.cuda.synchronize()
-        after = [c.launches for c in counters] + [tpt.pallas_composite_fwd.store_launches]
+        after = [_launches(k) for k in kernels]
         assert after == [b + 1 for b in before]
         (cs, cm), (gs_state, gm) = res["cpu"], res["cuda"]
         assert set(cm) == set(gm) and int(gm["binning_grad_dropped"]) == 0
