@@ -61,7 +61,12 @@ DINO shape is one launch of the inputs themselves. The counters
 ``kernel.b1`` (four CUDA kernels a launch: b1_gemm_tile, b1_pack_q,
 b1_stats, b1_emit) and ``kernel.b2`` (ten: four b2_gemm_tile, b2_pack_q,
 b2_c, b2_grad, three b2_sum_parts) of ``utils.profiling`` count launches on
-CUDA tensors, so a SuperPoint call counts 4.
+CUDA tensors, so a SuperPoint call counts 4. Only a padded call traces its
+wrapper: the span ``scorer.pad`` covers its own tensor work (the padding,
+the chunks' sums, the concatenations and slices; not the launches), and
+the counter ``scorer.chunks`` counts the launches it splits into (4 a call
+at 784 patches, forward and backward alike). The DINO shape returns before
+either.
 
 Precision ``mode``: both kernels run their P N d products on the tensor
 cores (mma.sync over bf16 pieces, ``csrc/mma_pieces.cuh``) with f32
@@ -85,12 +90,13 @@ import torch
 import torch.nn.functional as F
 
 from sixdgs_torch.ops import _build
-from sixdgs_torch.utils.profiling import count
+from sixdgs_torch.utils.profiling import count, span
 
 NEG = -9e15
 MODES = ("f32", "bf16", "bf16_split3")
 N_PATCHES = 256  # the kernels' compiled patch count (16 x 16 DINOv2 grid)
 KERNEL_WIDTH = 384  # their compiled width (DINOv2-S); narrower widths are padded
+_PAD = span("scorer.pad")  # a padded call's own tensor work around its launches
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -191,17 +197,15 @@ def _patch_chunks(q, ray_feats, wk, bk, pmask):
     chunks of N_PATCHES patches (the last padded with zero rows and
     pmask 0), and the width zero-padded to KERNEL_WIDTH (zero columns of q
     and feats, Wk zero outside its [d, d] block, zeros in bk). Returns
-    (q chunks, pmask chunks, feats, wk, bk); the DINO shape comes back as
-    one chunk of the inputs themselves."""
+    (q chunks, pmask chunks, feats, wk, bk) and counts the chunks."""
     P, d = q.shape
-    if P == N_PATCHES and d == KERNEL_WIDTH:
-        return (q,), (pmask,), ray_feats, wk, bk
     pad_p, pad_d = -P % N_PATCHES, KERNEL_WIDTH - d
     q = F.pad(q, (0, pad_d, 0, pad_p))
     pmask = F.pad(pmask, (0, pad_p))
     ray_feats = F.pad(ray_feats, (0, pad_d))
     wk = F.pad(wk, (0, pad_d, 0, pad_d))
     bk = F.pad(bk, (0, pad_d))
+    count("scorer.chunks", q.shape[0] // N_PATCHES)
     return q.split(N_PATCHES), pmask.split(N_PATCHES), ray_feats, wk, bk
 
 
@@ -213,16 +217,24 @@ def chunked_fwd(q, ray_feats, wk, bk, pmask, valid, mode, run):
     sqrt(d). Exact by linearity: the scores are a sum over patches, to
     which a padded patch (pmask 0) adds 0, and zero columns add exact zeros
     to the logits. The chunks' scores are summed in chunk order; their m
-    and s concatenate."""
+    and s concatenate. The kernel's own shape is one call of the inputs."""
     P, d = q.shape
-    qs, pms, feats, wk, bk = _patch_chunks(q, ray_feats, wk, bk, pmask)
+    if (P, d) == (N_PATCHES, KERNEL_WIDTH):
+        return run(q, ray_feats, wk, bk, pmask, valid, mode, math.sqrt(d))
+    with _PAD:
+        qs, pms, feats, wk, bk = _patch_chunks(q, ray_feats, wk, bk, pmask)
     scores, ms, ss = None, [], []
     for qc, pc in zip(qs, pms):
         sc, m, s = run(qc, feats, wk, bk, pc, valid, mode, math.sqrt(d))
-        scores = sc if scores is None else scores + sc
+        if scores is None:
+            scores = sc
+        else:
+            with _PAD:
+                scores = scores + sc
         ms.append(m)
         ss.append(s)
-    return scores, torch.cat(ms)[:P], torch.cat(ss)[:P]
+    with _PAD:
+        return scores, torch.cat(ms)[:P], torch.cat(ss)[:P]
 
 
 def chunked_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode, run):
@@ -232,10 +244,13 @@ def chunked_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode, run):
     over the chunks; dfeats, dWk and dbk, sums over patches, add up in chunk
     order (a padded patch has dlog = 0); the padding is sliced off."""
     P, d = q.shape
-    qs, pms, feats, wk, bk = _patch_chunks(q, ray_feats, wk, bk, pmask)
-    pad = len(qs) * N_PATCHES - P
-    m = F.pad(m.reshape(P), (0, pad), value=1.0).split(N_PATCHES)
-    s = F.pad(s.reshape(P), (0, pad), value=1.0).split(N_PATCHES)
+    if (P, d) == (N_PATCHES, KERNEL_WIDTH):
+        return run(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode, math.sqrt(d))
+    with _PAD:
+        qs, pms, feats, wk, bk = _patch_chunks(q, ray_feats, wk, bk, pmask)
+        pad = len(qs) * N_PATCHES - P
+        m = F.pad(m.reshape(P), (0, pad), value=1.0).split(N_PATCHES)
+        s = F.pad(s.reshape(P), (0, pad), value=1.0).split(N_PATCHES)
     dqs, dfeats, dwk, dbk = [], None, None, None
     for qc, pc, mc, sc in zip(qs, pms, m, s):
         dq, df, dw, db = run(qc, feats, wk, bk, pc, valid, mc, sc, g, mode, math.sqrt(d))
@@ -243,8 +258,10 @@ def chunked_bwd(q, ray_feats, wk, bk, pmask, valid, m, s, g, mode, run):
         if dfeats is None:
             dfeats, dwk, dbk = df, dw, db
         else:
-            dfeats, dwk, dbk = dfeats + df, dwk + dw, dbk + db
-    return (torch.cat(dqs)[:P, :d], dfeats[:, :d], dwk[:d, :d], dbk[:d])
+            with _PAD:
+                dfeats, dwk, dbk = dfeats + df, dwk + dw, dbk + db
+    with _PAD:
+        return (torch.cat(dqs)[:P, :d], dfeats[:, :d], dwk[:d, :d], dbk[:d])
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
