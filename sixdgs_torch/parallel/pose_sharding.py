@@ -72,7 +72,8 @@ def _ray_scores(attention, feats_pe, k, valid, patch_mask, group):
 def _sharded_batch_loss(mesh, id_module, fbatch: FeatureBatch, rays: Rays,
                         model_up: torch.Tensor):
     """(this rank's share of the global masked-mean loss, global aux).
-    Mirrors ``trainer.batch_loss_cached``, ``loss.distance_score_loss`` (the
+    Mirrors ``trainer.batch_loss_cached`` in its per-image formulation (each
+    image scored and its losses taken in turn), ``loss.distance_score_loss`` (the
     target's scale and the valid-ray count over "rays") and
     ``trainer._masked_mean`` (the count of finite losses over "data"); keep
     in step."""

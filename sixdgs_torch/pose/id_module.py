@@ -83,8 +83,7 @@ def score_image_cached(id_module: IdModule, feats_pe, patch_mask, fmap,
             # per-ray score = sum over *masked* patches (identification_module.py:82)
             scores = torch.sum(attn * patch_mask[:, None], dim=0)
     with span("pose.cam_up"):
-        cam_up = id_module.cam_up(fmap)
-        cam_up = cam_up / torch.clamp_min(torch.linalg.norm(cam_up), 1e-12)
+        cam_up = _unit(id_module.cam_up(fmap))
     return ScoreOutput(
         scores=scores,
         attention=attn,
@@ -92,3 +91,48 @@ def score_image_cached(id_module: IdModule, feats_pe, patch_mask, fmap,
         cam_up=cam_up,
         n_patches=torch.sum(patch_mask.to(torch.int32)),
     )
+
+
+def score_batch_cached(id_module: IdModule, feats_pe, patch_mask, fmap, rays: Rays,
+                       fused_attention: bool = False) -> ScoreOutput:
+    """score_image_cached over a batch of images scored against one ray set:
+    feats_pe [B, P, D+14], patch_mask [B, P] and fmap [B, D, G, G] give
+    scores [B, N], cam_up [B, 3] and n_patches [B]; ``attention`` is a
+    [0, 0] placeholder.
+
+    The ray MLP and the camera-up head run once over the batch. The fused
+    scorer projects the batch's queries in one GEMM and launches B1 (B2 in
+    the backward) once per image; the plain scorer projects and forms one
+    image's [P, N] map at a time, as ``score_image_cached`` does."""
+    with span("pose.ray_mlp"):
+        ray_feats = id_module.ray_mlp(rays.ori, rays.dir, rays.rgb)
+    with span("pose.scores"):
+        attention = id_module.attention
+        if fused_attention:
+            from sixdgs_torch.ops.attention_kernel import attention_scores_fused
+
+            # unbind, not indexing: the backward stacks the images' dq once
+            qs = attention.q(feats_pe).unbind(0)
+            valid = rays.valid.to(torch.float32)
+            wk = attention.k.weight.T
+            scores = [attention_scores_fused(q, ray_feats, wk, attention.k.bias, pm, valid)
+                      for q, pm in zip(qs, patch_mask.to(torch.float32).unbind(0))]
+        else:
+            # score_image_cached's projections and map, an image at a time
+            scores = [torch.sum(attention_scores(attention, fp, ray_feats, rays.valid)
+                                * pm[:, None], dim=0)
+                      for fp, pm in zip(feats_pe.unbind(0), patch_mask.unbind(0))]
+    with span("pose.cam_up"):
+        cam_up = _unit(id_module.cam_up(fmap))
+    return ScoreOutput(
+        scores=torch.stack(scores),
+        attention=feats_pe.new_zeros((0, 0)),
+        patch_mask=patch_mask,
+        cam_up=cam_up,
+        n_patches=torch.sum(patch_mask.to(torch.int32), dim=-1),
+    )
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    """v over its norm along the last axis (each row of a batch)."""
+    return v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True), 1e-12)

@@ -128,18 +128,22 @@ def attention_scores(attention: Attention, img_features, ray_features, ray_valid
 
 
 def _conv_valid(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """x [C, H, W] -> [O, H-kh+1, W-kw+1], VALID padding, in f32 matmuls."""
+    """x [B, C, H, W] -> [B, O, H-kh+1, W-kw+1], VALID padding: the batch's
+    im2col columns side by side in one f32 matmul (at B = 1, views of the
+    image's own columns)."""
     o, _, kh, kw = conv.weight.shape
-    hout, wout = x.shape[1] - kh + 1, x.shape[2] - kw + 1
-    cols = F.unfold(x[None], (kh, kw))[0]  # [C*kh*kw, hout*wout]
+    b, hout, wout = x.shape[0], x.shape[2] - kh + 1, x.shape[3] - kw + 1
+    cols = F.unfold(x, (kh, kw))  # [B, C*kh*kw, hout*wout]
+    cols = cols.transpose(0, 1).reshape(cols.shape[1], -1)  # [C*kh*kw, B*hout*wout]
     out = conv.weight.reshape(o, -1) @ cols + conv.bias[:, None]
-    return out.reshape(o, hout, wout)
+    return out.reshape(o, b, hout, wout).transpose(0, 1)
 
 
 class CamUpHead(nn.Module):
-    """[C, G, G] -> [3] unnormalized up direction. Grid 16 (DINO) reduces
-    16->4->1 so the MLP sees [channels]; the residual spatial dims are
-    flattened C-major like the reference's conv2_output.view(B, -1)."""
+    """[C, G, G] -> [3] unnormalized up direction, or a batch [B, C, G, G]
+    -> [B, 3]. Grid 16 (DINO) reduces 16->4->1 so the MLP sees [channels];
+    the residual spatial dims are flattened C-major like the reference's
+    conv2_output.view(B, -1)."""
 
     def __init__(self, channels: int = FEATURE_DIM, fea_output: int = 3,
                  featureC: int = 256, grid: int = 16):
@@ -153,10 +157,12 @@ class CamUpHead(nn.Module):
         self.mlp2 = nn.Linear(featureC, fea_output)
 
     def forward(self, feature_map):
-        x = feature_map
+        batched = feature_map.dim() == 4
+        x = feature_map if batched else feature_map[None]
         for conv in (*self.conv1, *self.conv2):
             x = F.relu(_conv_valid(x, conv))
-        h = F.relu(self.mlp1(x.reshape(-1)))
+        # one image keeps its vector MLP (the pose request's launches)
+        h = F.relu(self.mlp1(x.reshape(x.shape[0], -1) if batched else x.reshape(-1)))
         return self.mlp2(h)
 
 

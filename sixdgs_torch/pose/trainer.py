@@ -8,12 +8,16 @@ loss + 0.1 * camera-up cosine loss, NaN images skipped, frozen DINO
 backbone.
 
 Batch axis: the reference package vmaps one jitted step over the image
-batch. Here the ray features are computed once per step (they do not
-depend on the image), each image is scored against them, and one backward
-of the masked mean over finite per-image losses gives the same gradients.
-With ``fused_attention=True`` each image's scores go through the fused
-attention-score kernels (B1 forward, B2 backward), so no [256 x N_rays]
-attention matrix is materialized in either direction.
+batch. Here the step runs over the image axis itself
+(``id_module.score_batch_cached``): the ray features once (they do not
+depend on the image), one camera-up head and one loss over [B, N_rays],
+and one backward of the masked mean over finite per-image losses gives
+the same gradients. With ``fused_attention=True`` the batch's queries are
+projected at once and each image's scores go through the fused
+attention-score kernels (B1 forward, B2 backward; a launch per image), so
+no [256 x N_rays] attention matrix is materialized in either direction.
+The counter ``train.batched_images`` counts the images a batched forward
+scores.
 
 Random draws: the batch picks come from ``np.random.default_rng(seed)``,
 as in the reference package, so both pick the same images from one seed;
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from sixdgs_torch.pose.evaluate import prepare_image_mask
-from sixdgs_torch.pose.id_module import compute_image_features, score_image_cached
+from sixdgs_torch.pose.id_module import compute_image_features, score_batch_cached
 from sixdgs_torch.pose.loss import cam_up_loss, distance_score_loss
 from sixdgs_torch.rays.engine import Rays
 from sixdgs_torch.utils.config import PoseEstimationConfig
@@ -176,22 +180,16 @@ def _masked_mean(losses, score_losses, up_losses):
 def batch_loss_cached(id_module, fbatch: FeatureBatch, rays: Rays,
                       model_up: torch.Tensor, fused_attention: bool = False):
     """Mean loss over the image batch from precomputed backbone features:
-    (total, aux) with aux = {loss, loss_score, cam_up, n_nan}."""
-    with span("pose.ray_mlp"):
-        ray_feats = id_module.ray_mlp(rays.ori, rays.dir, rays.rgb)
-    losses, score_losses, up_losses = [], [], []
-    for b in range(fbatch.c2w.shape[0]):
-        out = score_image_cached(id_module, fbatch.feats_pe[b], fbatch.patch_mask[b],
-                                 fbatch.fmap[b], rays, fused_attention=fused_attention,
-                                 ray_feats=ray_feats)
-        loss_score, _ = distance_score_loss(out.scores, fbatch.c2w[b], rays.ori,
-                                            rays.dir, rays.valid, out.n_patches)
-        up = cam_up_loss(model_up, out.cam_up)
-        losses.append(loss_score + 0.1 * up)
-        score_losses.append(loss_score)
-        up_losses.append(up)
-    return _masked_mean(torch.stack(losses), torch.stack(score_losses),
-                        torch.stack(up_losses))
+    (total, aux) with aux = {loss, loss_score, cam_up, n_nan}. The batch is
+    scored as one (``score_batch_cached``) and its losses are taken over
+    [B, N]."""
+    count("train.batched_images", fbatch.c2w.shape[0])
+    out = score_batch_cached(id_module, fbatch.feats_pe, fbatch.patch_mask, fbatch.fmap,
+                             rays, fused_attention=fused_attention)
+    score_losses, _ = distance_score_loss(out.scores, fbatch.c2w, rays.ori, rays.dir,
+                                          rays.valid, out.n_patches)
+    up_losses = cam_up_loss(model_up, out.cam_up)
+    return _masked_mean(score_losses + 0.1 * up_losses, score_losses, up_losses)
 
 
 @torch.no_grad()

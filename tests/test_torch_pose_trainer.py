@@ -3,7 +3,9 @@ widths (DINO 2 x 64, feature_dim 64, 2,048 rays, 4 images per step): the
 hand-written Adafactor against optax, the batch loss and its gradients
 (one image NaN), three PoseTrainer steps from one seed on shared rays, the
 fused and plain scorers, checkpoints both ways, and the camera-up loss and
-augmentations.
+augmentations. The batched batch loss is also held to the per-image loop
+of ``per_image_loss.py``, and the pose request's one-image path to its
+forms there, bit for bit.
 
 Two parameters have a true gradient of exactly zero: the k-projection bias
 and the ray MLP's last bias (a shift of every logit of a patch by q_p . bk
@@ -42,11 +44,19 @@ from sixdgs_torch.scene.gaussians import from_arrays as t_from_arrays
 from sixdgs_torch.scene.structures import CameraInfo as TCam
 from sixdgs_torch.utils.config import PoseEstimationConfig as TCfg
 from sixdgs_torch.utils import profiling
+import per_image_loss as pil  # tests/per_image_loss.py
 
 
 def _launches(kernel):
     """Launches of ``kernel`` (b1-b5, b3_store) counted so far on CUDA tensors."""
     return profiling.snapshot()["counters"].get("kernel." + kernel, 0)
+
+
+@pytest.fixture
+def one_thread():
+    """Torch on one CPU thread (torch-only tests of small ops)."""
+    with pil.one_thread():
+        yield
 
 
 SIZE = 64
@@ -237,6 +247,83 @@ class TestFusedVersusPlain:
                                        atol=1e-6 * top, err_msg=k)
 
 
+@pytest.mark.usefixtures("one_thread")
+class TestBatchedStep:
+    @pytest.mark.parametrize("nan_image", [False, True])
+    @pytest.mark.parametrize("fused", [False, True])
+    @pytest.mark.parametrize("shape", ["dino", "superpoint"])
+    def test_matches_per_image_loop(self, shape, fused, nan_image):
+        """The batch scored as one (one camera-up head, one loss over
+        [B, N], one q-projection on the fused scorer) against the loop that
+        scores it image by image: loss, aux and every gradient within
+        pil.RTOL, NaN where the loop has NaN."""
+        idm, fbatch, rays, up = pil.random_step(pil.SMALL[shape], nan_image)
+        want = pil.loss_and_grads(pil.batch_loss_per_image, idm, fbatch, rays, up, fused)
+        got = pil.loss_and_grads(ttr.batch_loss_cached, idm, fbatch, rays, up, fused)
+        assert got[0]["n_nan"] == want[0]["n_nan"] == int(nan_image)
+        assert pil.nan_entries_match(got, want)
+        assert nan_image == any(torch.isnan(g).any() for g in want[1].values())
+        worst = pil.gaps(got, want)
+        assert max(worst.values()) <= pil.RTOL, worst
+
+
+@pytest.mark.usefixtures("one_thread")
+class TestOneImagePath:
+    """The pose request scores one image through the functions the batch
+    goes through."""
+
+    def test_batched_rows_equal_one_image_calls(self):
+        idm, fbatch, rays, up = pil.random_step(pil.SMALL["superpoint"], nan_image=False)
+        n = fbatch.patch_mask.sum(-1, dtype=torch.int32)
+        scores = torch.rand(fbatch.c2w.shape[0], rays.valid.shape[0])
+        losses, targets = tloss.distance_score_loss(scores, fbatch.c2w, rays.ori, rays.dir,
+                                                    rays.valid, n)
+        with torch.no_grad():
+            heads = idm.cam_up(fbatch.fmap)
+        ups = tloss.cam_up_loss(up, heads)
+        for b in range(fbatch.c2w.shape[0]):
+            loss, target = tloss.distance_score_loss(scores[b], fbatch.c2w[b], rays.ori,
+                                                     rays.dir, rays.valid, n[b])
+            assert torch.equal(losses[b], loss) and torch.equal(targets[b], target)
+            assert torch.equal(ups[b], tloss.cam_up_loss(up, heads[b]))
+            with torch.no_grad():
+                head = idm.cam_up(fbatch.fmap[b])
+            # one GEMM over the batch against one image's matrix-vector product
+            torch.testing.assert_close(heads[b], head, rtol=pil.RTOL, atol=0.0)
+
+    def test_one_image_forms_bitwise_as_before(self):
+        idm, fbatch, rays, up = pil.random_step(pil.SMALL["dino"], nan_image=False)
+        scores = torch.rand(rays.valid.shape[0])
+        for b in range(fbatch.c2w.shape[0]):
+            args = (fbatch.c2w[b], rays.ori, rays.dir, rays.valid,
+                    fbatch.patch_mask[b].sum(dtype=torch.int32))
+            for new, old in zip(tloss.target_ray_scores(*args), pil.target_ray_scores(*args)):
+                assert torch.equal(new, old)
+            for new, old in zip(tloss.distance_score_loss(scores, *args),
+                                pil.distance_score_loss_one(scores, *args)):
+                assert torch.equal(new, old)
+            with torch.no_grad():
+                head = idm.cam_up(fbatch.fmap[b])
+                assert torch.equal(head, pil.cam_up_head_one(idm.cam_up, fbatch.fmap[b]))
+            assert torch.equal(tloss.cam_up_loss(up, head), pil.cam_up_loss_one(up, head))
+
+    @pytest.mark.parametrize("fused", [False, True])
+    def test_eval_image_bitwise_as_before(self, setup, fused, monkeypatch):
+        from sixdgs_torch.pose.evaluate import eval_image
+
+        s = setup
+        cam = s["t_cams"][2]
+        img, mask = map(torch.as_tensor, ttr.prepare_image_mask(cam))
+        args = (s["t_dino"], s["t_idm"], img, mask, torch.tensor(cam.c2w(), dtype=torch.float32),
+                s["t_rays"])
+        now = eval_image(*args, k=16, fused_attention=fused)
+        pil.as_before(monkeypatch)
+        before = eval_image(*args, k=16, fused_attention=fused)
+        assert now.keys() == before.keys()
+        for k in now:
+            assert torch.equal(now[k], before[k]), k
+
+
 # ---------------------------------------------------------------- the trainer
 
 
@@ -265,6 +352,7 @@ class TestTrainerParity:
                                            err_msg=k)
         assert all(st["step"] == 3 for st in tt.optimizer.state.values())
 
+    @pytest.mark.usefixtures("one_thread")
     def test_validate_and_fused_run(self, setup):
         """A fused trainer from iteration 0 (its own rays, drawn on the CPU)
         trains, regenerates rays at iteration 0 and validates."""
@@ -322,6 +410,7 @@ class TestCheckpoints:
         # the reference's optimizer state has other keys: left fresh
         assert not tt.optimizer.state
 
+    @pytest.mark.usefixtures("one_thread")
     def test_resume_continues_bit_identically(self, setup, tmp_path):
         """params + Adafactor state + running_loss restore exactly: a resumed
         trainer continues bit for bit like the one that never stopped (the

@@ -2,7 +2,9 @@
 mechanism on a patched clock and under a CPU ``torch.profiler``, and the
 stages of one pose request, a three-step training run with one validation,
 and a kernel build, at a tiny size. The program's outputs are the same bit
-for bit with spans on and off."""
+for bit with spans on and off. Torch runs on one CPU thread here: at these
+sizes its threads cost more than they give, most of all beside other test
+workers."""
 
 import os
 import stat
@@ -22,6 +24,7 @@ from sixdgs_torch.scene.gaussians import from_arrays
 from sixdgs_torch.scene.structures import CameraInfo
 from sixdgs_torch.utils import profiling
 from sixdgs_torch.utils.config import PoseEstimationConfig
+import per_image_loss as pil  # tests/per_image_loss.py
 
 SIZE = 64
 CFG = dict(gradient_accumulation_steps=4, ray_budget=2048, max_ellipsoids=300,
@@ -33,7 +36,8 @@ N_TRAIN, N_TEST, STEPS = 4, 2, 3
 def fresh():
     profiling.disable()
     profiling.snapshot(reset=True)
-    yield
+    with pil.one_thread():
+        yield
     profiling.disable()
     profiling.snapshot(reset=True)
 
@@ -230,8 +234,8 @@ TRAINING_SPANS = {
     "train.optimizer": (STEPS, {"train.step": STEPS}),
     "train.read": (STEPS, {"train.step": STEPS}),
     "pose.ray_mlp": (STEPS + VIEWS, {"train.forward": STEPS, "pose.eval_image": VIEWS}),
-    "pose.scores": (STEPS * B + VIEWS, {"train.forward": STEPS * B, "pose.eval_image": VIEWS}),
-    "pose.cam_up": (STEPS * B + VIEWS, {"train.forward": STEPS * B, "pose.eval_image": VIEWS}),
+    "pose.scores": (STEPS + VIEWS, {"train.forward": STEPS, "pose.eval_image": VIEWS}),
+    "pose.cam_up": (STEPS + VIEWS, {"train.forward": STEPS, "pose.eval_image": VIEWS}),
     "pose.backbone": (N_TRAIN + VIEWS, {"setup.feature_cache": N_TRAIN,
                                         "pose.eval_image": VIEWS}),
     "pose.preprocess": (2 * (N_TRAIN + VIEWS), {"pose.backbone": 2 * (N_TRAIN + VIEWS)}),
@@ -263,8 +267,15 @@ class TestProgramStages:
         snap = profiling.snapshot()
         assert _spans(snap) == TRAINING_SPANS
         # a step reads the loss and, logging every step, the four aux values;
-        # a view reads eight numbers back
-        assert snap["counters"] == {"host.reads": STEPS * (1 + 4) + VIEWS * 8}
+        # a view reads eight numbers back; a step scores its B images as one
+        assert snap["counters"] == {"host.reads": STEPS * (1 + 4) + VIEWS * 8,
+                                    "train.batched_images": STEPS * B}
+
+    def test_batched_images_counted_with_spans_off(self):
+        idm, fbatch, rays, up = pil.random_step(pil.SMALL["dino"], nan_image=False)
+        ttr.batch_loss_cached(idm, fbatch, rays, up)
+        assert profiling.snapshot() == {
+            "spans": {}, "counters": {"train.batched_images": fbatch.c2w.shape[0]}}
 
     def test_off_opens_no_range_in_a_request_or_a_step(self, tiny):
         assert _profiled_ranges(lambda: _request(tiny)) == {}
