@@ -10,7 +10,6 @@ Imports torch and sixdgs_torch only (the card's machine has no JAX);
 imported as ``per_image_loss``.
 """
 
-import contextlib
 import math
 
 import torch
@@ -33,18 +32,6 @@ RTOL = 1e-6
 # the two parameters whose true gradient is zero (test_torch_pose_trainer.py):
 # rounding noise, held against the module's largest gradient entry
 ZERO_GRAD_PARAMS = ("attention.k.bias", "ray_mlp.l4.bias")
-
-
-@contextlib.contextmanager
-def one_thread():
-    """torch on one CPU thread inside: these small ops lose more to thread
-    hand-offs than they gain, most of all when test workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def random_step(shape, nan_image: bool, device="cpu", seed=0):

@@ -43,6 +43,7 @@ from sixdgs_torch.pose import lpips as tlpips
 from sixdgs_torch.scene.gaussians import load_ply
 from sixdgs_torch.utils.config import OptimizationConfig
 from tests.test_scene_io import make_blender_dataset
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 ITERS = 8
 LOSS_RTOL = 1e-4

@@ -19,6 +19,7 @@ from sixdgs_tpu.pose import modules as jmod
 from sixdgs_torch import weights
 from sixdgs_torch.ops import attention_kernel as tak
 from sixdgs_torch.utils import profiling
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 
 def _launches(kernel):

@@ -24,6 +24,7 @@ from sixdgs_torch.pose import trainer as ttr
 from sixdgs_torch.pose.evaluate import eval_image
 from sixdgs_torch.utils import profiling
 import per_image_loss as pil  # tests/per_image_loss.py
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 pytestmark = pytest.mark.cuda
 

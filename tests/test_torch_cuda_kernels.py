@@ -22,6 +22,7 @@ from sixdgs_torch.ops import attention_kernel as tak
 from sixdgs_torch.ops.rasterizer import pallas_tiles as tpt
 from sixdgs_torch.utils import profiling
 from align_layouts import ALIGN_LAYOUTS, align_layout  # tests/align_layouts.py
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 
 def _launches(kernel):

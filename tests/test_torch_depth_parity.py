@@ -72,6 +72,7 @@ from sixdgs_torch.scene.structures import CameraInfo as TCam
 from sixdgs_torch.utils.config import PoseEstimationConfig as TCfg
 from test_pose_e2e import make_camera_infos, make_gt_scene
 from test_torch_gs_training import dataset, _trainers  # noqa: F401 (a fixture)
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 ZERO_GRAD_PARAMS = ("attention/k/b", "ray_mlp/l4/b")
 # the accuracy experiment's trainer (tools/pose_accuracy_experiment.py:
@@ -94,17 +95,6 @@ def _flat_jax(params):
 
 def _flat_port(module):
     return ttr._flatten(weights.id_module_to_numpy(module))
-
-
-@pytest.fixture(autouse=True)
-def _share_the_cores():
-    """Under xdist each worker takes its share of the cores: an
-    oversubscribed torch pool runs these steps many times slower."""
-    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
-    before = torch.get_num_threads()
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
-    yield
-    torch.set_num_threads(before)
 
 
 @pytest.fixture(scope="module")

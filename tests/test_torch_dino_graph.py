@@ -22,6 +22,7 @@ from sixdgs_torch.pose.evaluate import eval_image
 from sixdgs_torch.pose.modules import init_id_module
 from sixdgs_torch.rays.engine import Rays
 from sixdgs_torch.utils import profiling
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 
 def _counts():

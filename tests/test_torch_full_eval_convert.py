@@ -40,6 +40,7 @@ from sixdgs_torch.pose import lpips as tlpips
 from sixdgs_torch.utils import profiling as tprofiling
 from tests.test_scene_io import make_blender_dataset
 from tests.test_torch_apps import LOSS_RTOL, LPIPS_RTOL, PSNR_ATOL, SSIM_ATOL
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 ITERS = 8
 

@@ -45,6 +45,7 @@ from sixdgs_torch.train import checkpoint as tckpt
 from sixdgs_torch.train import gs_trainer as ttrain
 from sixdgs_torch.train import optim as toptim
 from sixdgs_torch.utils import config as tconfig
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 # the package's ops/__init__ re-exports the function under the module's name
 jssim = importlib.import_module("sixdgs_tpu.ops.ssim")

@@ -38,6 +38,7 @@ from sixdgs_torch.renderer import network_gui as tgui
 from sixdgs_torch.scene.cameras import make_synthetic_camera
 from sixdgs_torch.train import gs_trainer as tgs
 from tests.test_scene_io import make_blender_dataset
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 CLIENT_TIMEOUT = 60.0  # seconds, per socket operation and for the join
 

@@ -41,6 +41,7 @@ from sixdgs_torch.utils.config import ModelConfig, write_cfg_args
 from tests.test_converters import make_dino_state_dict
 from tests.test_nvm_loader import write_nvm_dataset
 from tests.test_torch_scene_io import _Args, _no_pillow, _same_scene_info
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 MISSING = "seq1/frame00003.jpg"
 

@@ -14,6 +14,7 @@ from sixdgs_torch.ops import lines as tlines
 from sixdgs_torch.ops import sh as tsh
 from sixdgs_torch.ops import sym_eig as tsym
 from sixdgs_torch.ops import transforms as ttf
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 # float32 elementwise math on both sides; the two libraries may fuse and
 # order operations differently, so allow a few ulps of the values' scale

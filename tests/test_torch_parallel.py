@@ -58,6 +58,7 @@ from sixdgs_tpu.train import gs_trainer as jtrain
 from sixdgs_tpu.utils.config import OptimizationConfig
 from sixdgs_torch.parallel import mesh as tmesh
 from sixdgs_torch.pose import trainer as ttr
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_parallel_ranks.py")
 WORLDS = (1, 2, 4)

@@ -31,6 +31,7 @@ from sixdgs_torch.rays.engine import generate_rays_from_scene as t_gen
 from sixdgs_torch.scene.gaussians import from_arrays as t_from_arrays
 from sixdgs_torch.scene.structures import CameraInfo as TCam
 from sixdgs_torch.utils.config import PoseEstimationConfig as TCfg
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 SIZE = 64
 

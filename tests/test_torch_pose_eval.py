@@ -42,6 +42,7 @@ from sixdgs_torch.pose import evaluate as tev
 from sixdgs_torch.utils.config import PoseEstimationConfig as TCfg
 from tests.test_converters import make_dino_state_dict
 from tests.test_scene_io import make_blender_dataset
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 BUDGETS = ["--n_iterations", "2", "--batch", "2", "--ray_budget", "512"]
 SCENE = "synthetic_chair_0001"

@@ -18,6 +18,7 @@ from sixdgs_torch import weights
 from sixdgs_torch.pose import backbone as tbb
 from sixdgs_torch.pose import dino as tdino
 from sixdgs_torch.pose import modules as tmod
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 # f32 matmuls on both sides, reduced in different orders: a few ulps of the
 # activations' scale per layer

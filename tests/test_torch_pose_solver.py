@@ -14,6 +14,7 @@ from sixdgs_tpu.pose import loss as jloss
 from sixdgs_tpu.pose import solver as jsol
 from sixdgs_torch.pose import loss as tloss
 from sixdgs_torch.pose import solver as tsol
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 
 def _t(x):

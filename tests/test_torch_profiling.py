@@ -2,9 +2,9 @@
 mechanism on a patched clock and under a CPU ``torch.profiler``, and the
 stages of one pose request, a three-step training run with one validation,
 and a kernel build, at a tiny size. The program's outputs are the same bit
-for bit with spans on and off. Torch runs on one CPU thread here: at these
-sizes its threads cost more than they give, most of all beside other test
-workers."""
+for bit with spans on and off. Torch runs on one CPU thread here
+(``torch_threads.one_thread``): at these sizes its threads cost more than
+they give, most of all beside other test workers."""
 
 import os
 import stat
@@ -25,6 +25,7 @@ from sixdgs_torch.scene.structures import CameraInfo
 from sixdgs_torch.utils import profiling
 from sixdgs_torch.utils.config import PoseEstimationConfig
 import per_image_loss as pil  # tests/per_image_loss.py
+from torch_threads import one_thread, shared_cores  # noqa: F401 (fixtures)
 
 SIZE = 64
 CFG = dict(gradient_accumulation_steps=4, ray_budget=2048, max_ellipsoids=300,
@@ -33,11 +34,10 @@ N_TRAIN, N_TEST, STEPS = 4, 2, 3
 
 
 @pytest.fixture(autouse=True)
-def fresh():
+def fresh(one_thread):
     profiling.disable()
     profiling.snapshot(reset=True)
-    with pil.one_thread():
-        yield
+    yield
     profiling.disable()
     profiling.snapshot(reset=True)
 

@@ -52,6 +52,7 @@ from sixdgs_torch.train import gs_trainer as ttrain
 from sixdgs_torch.utils import config as tconfig
 from sixdgs_torch.utils import profiling
 from align_layouts import ALIGN_LAYOUTS, align_layout  # tests/align_layouts.py
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 
 def _launches(kernel):

@@ -41,6 +41,7 @@ from sixdgs_torch.ops.rasterizer import projection as tproj
 from sixdgs_torch.ops.rasterizer import tiles as ttiles
 from sixdgs_torch.ops.transforms import build_covariance as tbuild_covariance
 from sixdgs_torch.utils import profiling
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 
 def _launches(kernel):
@@ -107,17 +108,30 @@ def _case(name):
     return _records_case(counts, seed=0, aligned=aligned, opaque=opaque)
 
 
+@pytest.fixture(scope="module")
+def jax_fwd():
+    """{case: (out, Texcl)} of the Pallas forward (interpret) on each
+    case's records, with the transmittance store where the layout is
+    aligned (Texcl None where it is not)."""
+    out = {}
+    for case, (_, aligned, _) in CASES.items():
+        rec, starts, counts, _ = _case(case)
+        j = [jnp.asarray(x) for x in (rec, starts, counts)]
+        out[case] = (jpt.pallas_composite_fwd(*j, NX, NY, jnp.asarray(BG), interpret=True,
+                                              store_t=True) if aligned else (
+            jpt.pallas_composite_fwd(*j, NX, NY, jnp.asarray(BG), interpret=True), None))
+    return out
+
+
 class TestTransmittanceStore:
     @pytest.mark.parametrize("case", ["mixed", "early_exit"])
-    def test_store_matches_pallas_and_leaves_out_alone(self, case):
+    def test_store_matches_pallas_and_leaves_out_alone(self, jax_fwd, case):
         """``out`` with the store is bitwise ``out`` without it, and Texcl
         equals the Pallas kernel's on every lane a pixel reaches (a real
         pair up to and with the pixel's stop; past the stop the JAX kernel
         keeps multiplying where the port freezes, and neither is read)."""
         rec, starts, counts, _ = _case(case)
-        out_j, tex_j = jpt.pallas_composite_fwd(
-            jnp.asarray(rec), jnp.asarray(starts), jnp.asarray(counts), NX, NY,
-            jnp.asarray(BG), interpret=True, store_t=True)
+        out_j, tex_j = jax_fwd[case]
         args = (_t(rec), _t(starts), _t(counts), NX, NY, _t(BG))
         out, tex = tpt.pallas_composite_fwd(*args, store_t=True)
         assert torch.equal(out, tpt.pallas_composite_fwd(*args))
@@ -143,13 +157,11 @@ class TestCompositeBackward:
     identical records, outputs and cotangents."""
 
     @staticmethod
-    def _run(case, stored):
+    def _run(jax_fwd, case, stored):
         rec, starts, counts, mask = _case(case)
         aligned = CASES[case][1]
         j = [jnp.asarray(x) for x in (rec, starts, counts)]
-        out_j, tex_j = jpt.pallas_composite_fwd(*j, NX, NY, jnp.asarray(BG), interpret=True,
-                                                store_t=True) if aligned else (
-            jpt.pallas_composite_fwd(*j, NX, NY, jnp.asarray(BG), interpret=True), None)
+        out_j, tex_j = jax_fwd[case]
         dout = np.random.default_rng(99).normal(size=out_j.shape).astype(np.float32)
         want = jpt.pallas_composite_bwd(*j, NX, NY, out_j, jnp.asarray(dout), interpret=True,
                                         aligned=aligned, texcl=tex_j if stored else None)
@@ -166,8 +178,8 @@ class TestCompositeBackward:
     @pytest.mark.parametrize("case,stored", [
         ("mixed", False), ("mixed", True), ("early_exit", False), ("early_exit", True),
         ("unaligned", False), ("all_empty", False), ("all_empty", True)])
-    def test_matches_pallas(self, case, stored):
-        got, want, mask = self._run(case, stored)
+    def test_matches_pallas(self, jax_fwd, case, stored):
+        got, want, mask = self._run(jax_fwd, case, stored)
         assert got.shape == want.shape and got.dtype == torch.float32
         for r in range(9):
             np.testing.assert_allclose(

@@ -16,6 +16,7 @@ from sixdgs_torch.rays import normals as tnorm
 from sixdgs_torch.rays import quadricell as tqc
 from sixdgs_torch.scene.gaussians import from_arrays as t_from_arrays
 from sixdgs_torch.utils.config import PoseEstimationConfig as TCfg
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 
 def _t(x):

@@ -10,6 +10,7 @@ from sixdgs_tpu.scene import structures as jstruct
 from sixdgs_torch.scene import gaussians as tg
 from sixdgs_torch.scene import ply_io as tply
 from sixdgs_torch.scene.structures import CameraInfo
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 
 def _arrays(n=300, deg=3, seed=0):

@@ -35,6 +35,7 @@ from sixdgs_torch.utils import config as tconfig
 from sixdgs_torch.utils import native as tnative
 from tests.test_converters import make_dino_state_dict
 from tests.test_scene_io import make_blender_dataset
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 
 class _Args:

@@ -49,6 +49,7 @@ from sixdgs_torch.weights import superpoint_from_numpy
 from tests.test_converters import make_superpoint_state_dict, make_vgg16_state_dict
 from tests.test_torch_pose_eval import (BUDGETS, SCENE, _errors, _experiment, _run,
                                         assert_same_per_image_errors, evaluate_both)
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 # descriptors are unit vectors through 10 float32 convolutions
 DESC_ATOL = 1e-5

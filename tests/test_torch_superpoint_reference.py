@@ -24,6 +24,7 @@ from sixdgs_torch.pose.backbone import backbone_features
 from sixdgs_torch.pose.id_module import score_image_cached
 from sixdgs_torch.rays.engine import Rays
 from sixdgs_torch.utils import profiling
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 CONFIG = json.loads((Path(__file__).resolve().parents[1] / "benchmark" / "configs"
                      / "superpoint.json").read_text())

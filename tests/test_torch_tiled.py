@@ -43,6 +43,7 @@ from sixdgs_torch.scene import cameras as tscam
 from sixdgs_torch.scene import gaussians as tg
 from sixdgs_torch.train import gs_trainer as ttrain
 from sixdgs_torch.utils import config as tconfig
+from torch_threads import shared_cores  # noqa: F401 (an autouse fixture)
 
 IMG_ATOL = 2e-6
 GRAD_RTOL = 1e-4

@@ -84,6 +84,7 @@ from tests.test_torch_apps import PSNR_ATOL, SSIM_ATOL  # noqa: E402
 from tests.test_torch_pose_eval import ERR_ATOL, SEED, _errors  # noqa: E402
 from tools import pose_stage_artifact as jps  # noqa: E402
 from tools import quality_workflow as jqw  # noqa: E402
+from torch_threads import shared_cores  # noqa: E402, F401 (an autouse fixture)
 
 IMG_ATOL = 2e-6
 N_TRAIN, N_TEST, SIZE, N_GT = 3, 2, 32, 60
@@ -94,19 +95,6 @@ ACCURACY_KEYS = {"metric", "value", "unit", "angular_error_deg", "recall_at_100"
                  "untrained", "target_score_solve_t_err", "iterations", "trajectory"}
 STAGE_KEYS = {"wall_s", "n_results", "overfit_t_err", "overfit_a_err", "test_t_err",
               "test_a_err", "test_recall", "time_per_image_s", "results"}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _shared_cores():
-    """The suite runs under pytest-xdist; torch's intra-op pool, sized to
-    every core in each worker, oversubscribes the host, and this file's
-    many small ops (the accuracy tool's 100 training steps) then ran ~25x
-    slower than alone. Each worker takes its share of the cores."""
-    workers = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))
-    before = torch.get_num_threads()
-    torch.set_num_threads(max(1, (os.cpu_count() or 1) // workers))
-    yield
-    torch.set_num_threads(before)
 
 
 def _files(root):

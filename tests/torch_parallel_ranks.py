@@ -28,6 +28,7 @@ from sixdgs_torch.pose import trainer as ttr  # noqa: E402
 from sixdgs_torch.rays.engine import Rays  # noqa: E402
 from sixdgs_torch.scene.gaussians import PARAM_NAMES, from_arrays  # noqa: E402
 from sixdgs_torch.train import gs_trainer as gs  # noqa: E402
+from torch_threads import held_at  # noqa: E402 (tests/torch_threads.py)
 
 CAM_FIELDS = ("view", "full_proj", "camera_center", "tan_fovx", "tan_fovy")
 
@@ -136,7 +137,6 @@ def _gs_case(out, data, rasterizer):
 
 
 def main(rank: int, world: int, workdir: str) -> None:
-    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{workdir}/init{world}",
                             rank=rank, world_size=world)
     data = np.load(os.path.join(workdir, "inputs.npz"))
@@ -163,4 +163,5 @@ def main(rank: int, world: int, workdir: str) -> None:
 
 
 if __name__ == "__main__":
-    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    with held_at(1):  # up to four ranks at once inside one test worker
+        main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
