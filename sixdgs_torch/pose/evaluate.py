@@ -10,7 +10,7 @@ quirk, :111-142) and reports recall@100 and the average score loss.
 from __future__ import annotations
 
 import time
-from typing import List
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -97,9 +97,14 @@ def test_pose_estimation(
     k: int = 100,
     backbone: str = "dino",
     fused_attention: bool = False,
+    views: Optional[Sequence] = None,
 ):
     """Evaluate a list of CameraInfo (reference signature analogue) on the
     device the rays live on.
+
+    ``views``, where given, holds each camera's prepared ``(img, mask)``
+    (``prepare_image_mask``'s output), view i camera i's: it is read as it
+    is and no view is prepared. Without it every view is prepared here.
 
     Returns (results, avg_translation_error, avg_angular_error,
     avg_loss_score, avg_recall, seconds_per_image) like test.py:323.
@@ -111,7 +116,7 @@ def test_pose_estimation(
     for img_idx, info in enumerate(cam_infos):
         with span("val.view"):
             with span("val.prepare"):
-                img, mask = prepare_image_mask(info)
+                img, mask = prepare_image_mask(info) if views is None else views[img_idx]
                 gt = info.c2w()
             with span("val.upload"):
                 img_d = torch.tensor(img, device=dev)

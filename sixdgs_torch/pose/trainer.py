@@ -332,6 +332,10 @@ class PoseTrainer:
         # host-side cache of composited images/masks
         with span("setup.image_cache"):
             self._img_cache = [prepare_image_mask(c) for c in train_cam_infos]
+        # the held-out list's views, prepared at its first validation: id of
+        # the camera -> (the camera, its view); the camera is kept, so that
+        # its id is not reused while the entry lives
+        self._held_out = {}
         # frozen-backbone feature cache: the reference recomputes DINO
         # features on every accumulation step (train.py:146); they are
         # constants per camera while the backbone is locked, so they are
@@ -415,22 +419,43 @@ class PoseTrainer:
                 self.validate(it, test_cam_infos=test_cam_infos, writer=writer)
         return self.id_module
 
+    def _held_out_views(self, cam_infos):
+        """Each held-out camera's prepared (img, mask), and whether it came
+        from the cache. A camera is prepared the first time the trainer
+        validates it, the whole list at once, so that a short validation
+        (``max_images``) prepares what later ones read; the cache then holds
+        this list's cameras only."""
+        cache, cached = {}, []
+        for c in cam_infos:
+            entry = self._held_out.get(id(c))
+            cached.append(entry is not None and entry[0] is c)
+            cache[id(c)] = entry if cached[-1] else (c, prepare_image_mask(c))
+        self._held_out = cache
+        return [cache[id(c)][1] for c in cam_infos], cached
+
     @span("train.validate")
     def validate(self, iteration: int, test_cam_infos=None, writer=None,
                  max_images: Optional[int] = None):
-        """train.py:214-303 analogue: target-score solve on train/test views."""
+        """train.py:214-303 analogue: target-score solve on train/test views,
+        each view prepared once per trainer (``val.cached_views`` counts the
+        views served from a cache)."""
         from sixdgs_torch.pose.evaluate import test_pose_estimation
 
         out = {}
-        splits = [("train_imgs", self.train_cam_infos)]
+        splits = [("train_imgs", self.train_cam_infos, self._img_cache,
+                   [True] * len(self._img_cache))]
         if test_cam_infos:
-            splits.append(("validation_imgs", test_cam_infos))
-        for tag, infos in splits:
-            infos = infos[:max_images] if max_images else infos
+            splits.append(("validation_imgs", test_cam_infos,
+                           *self._held_out_views(test_cam_infos)))
+        for tag, infos, views, cached in splits:
+            n = max_images or len(infos)
+            infos, views = infos[:n], views[:n]
+            count("val.cached_views", sum(cached[:n]))
             _, t_err, a_err, loss_score, recall, _ = test_pose_estimation(
                 infos, self.dino_model, self.id_module, self.rays, self.model_up,
                 use_target_scores=True, k=self.cfg.rays_to_output,
                 backbone=self.backbone, fused_attention=self.fused_attention,
+                views=views,
             )
             out[tag] = {"translation_error": t_err, "angular_error": a_err,
                         "loss_score": loss_score, "recall": recall}

@@ -17,6 +17,7 @@ They are held to that bound; every other parameter to rounding.
 """
 
 import copy
+import dataclasses
 
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from sixdgs_tpu.utils.config import PoseEstimationConfig as JCfg
 from sixdgs_torch import weights
 from sixdgs_torch.ops import attention_kernel as tak
 from sixdgs_torch.pose import cam_augmentations as taug
+from sixdgs_torch.pose import evaluate as tev
 from sixdgs_torch.pose import loss as tloss
 from sixdgs_torch.pose import trainer as ttr
 from sixdgs_torch.rays.engine import Rays as TRays
@@ -386,6 +388,99 @@ class TestTrainerParity:
         # the caller's module is not trained
         for p, q in zip(s["t_idm"].parameters(), tt.id_module.parameters()):
             assert p is not q
+
+
+def _cached_views():
+    return profiling.snapshot()["counters"].get("val.cached_views", 0)
+
+
+class TestPreparedViews:
+    """A validation reads each view as the trainer prepared it once: the
+    training views from its image cache, the held-out views from a cache
+    filled at their first validation and keyed on the camera objects."""
+
+    @pytest.fixture
+    def trainer(self, setup):
+        s = setup
+        tt = ttr.PoseTrainer(s["t_dino"], s["t_idm"], s["t_scene"], s["t_cams"][:4],
+                             TCfg(**CFG), seed=5, fused_attention=True, device="cpu")
+        tt.rays = s["t_rays"]
+        return tt
+
+    @staticmethod
+    def _counted_preparation(monkeypatch):
+        """The cameras prepare_image_mask is called on from now, in both
+        namespaces that call it."""
+        prepared, original = [], tev.prepare_image_mask
+
+        def prepare(info, *a, **k):
+            prepared.append(info)
+            return original(info, *a, **k)
+
+        monkeypatch.setattr(tev, "prepare_image_mask", prepare)
+        monkeypatch.setattr(ttr, "prepare_image_mask", prepare)
+        return prepared
+
+    @pytest.mark.usefixtures("one_thread")
+    def test_second_validation_prepares_no_view(self, setup, trainer, monkeypatch):
+        held_out = setup["t_cams"][4:]
+        prepared = self._counted_preparation(monkeypatch)
+        before = _cached_views()
+        trainer.validate(0, test_cam_infos=held_out, max_images=1)
+        # a short validation prepares the whole held-out list, and nothing else
+        assert [id(c) for c in prepared] == [id(c) for c in held_out]
+        assert _cached_views() - before == 1
+        prepared.clear()
+        before = _cached_views()
+        second = trainer.validate(1, test_cam_infos=held_out)
+        assert prepared == []
+        assert _cached_views() - before == len(trainer.train_cam_infos) + len(held_out)
+        assert trainer.validate(2, test_cam_infos=held_out) == second
+
+    @pytest.mark.usefixtures("one_thread")
+    def test_prepared_views_give_bitwise_equal_results(self, trainer):
+        infos = trainer.train_cam_infos
+        runs = [tev.test_pose_estimation(
+            infos, trainer.dino_model, trainer.id_module, trainer.rays, trainer.model_up,
+            use_target_scores=True, k=trainer.cfg.rays_to_output, fused_attention=True,
+            **kw) for kw in ({}, {"views": trainer._img_cache})]
+        (plain, *plain_avg), (cached, *cached_avg) = runs
+        assert len(plain) == len(infos)
+        for a, b in zip(plain, cached):
+            assert set(a) == set(b)
+            for key in a:
+                assert repr(a[key]) == repr(b[key]), key
+        # the averages but the seconds a view took
+        assert repr(plain_avg[:-1]) == repr(cached_avg[:-1])
+
+    def test_different_held_out_list_is_prepared_afresh(self, setup, trainer, monkeypatch):
+        """Cameras of another list, even with the first list's uids and
+        names, are never served the first list's images."""
+        first = setup["t_cams"][4:]
+        other = [dataclasses.replace(c, image=np.ascontiguousarray(c.image[::-1]))
+                 for c in first]
+        seen = []
+        original = tev.test_pose_estimation
+
+        def recorded(cam_infos, *a, **k):
+            seen.append((cam_infos, k["views"]))
+            return original(cam_infos, *a, **k)
+
+        monkeypatch.setattr(tev, "test_pose_estimation", recorded)
+        trainer.validate(0, test_cam_infos=first, max_images=1)
+        prepared = self._counted_preparation(monkeypatch)
+        before = _cached_views()
+        trainer.validate(1, test_cam_infos=other)
+        assert [id(c) for c in prepared] == [id(c) for c in other]
+        assert _cached_views() - before == len(trainer.train_cam_infos)
+        infos, views = seen[-1]
+        assert [id(c) for c in infos] == [id(c) for c in other]
+        for cam, (img, mask) in zip(other, views):
+            ref_img, ref_mask = tev.prepare_image_mask(cam)
+            np.testing.assert_array_equal(img, ref_img)
+            np.testing.assert_array_equal(mask, ref_mask)
+        # the training split still reads the trainer's own image cache
+        assert all(v is c for v, c in zip(seen[-2][1], trainer._img_cache))
 
 
 class TestCheckpoints:

@@ -267,9 +267,12 @@ class TestProgramStages:
         snap = profiling.snapshot()
         assert _spans(snap) == TRAINING_SPANS
         # a step reads the loss and, logging every step, the four aux values;
-        # a view reads eight numbers back; a step scores its B images as one
+        # a view reads eight numbers back; a step scores its B images as one;
+        # the first validation serves the training views from the image
+        # cache and prepares the held-out ones
         assert snap["counters"] == {"host.reads": STEPS * (1 + 4) + VIEWS * 8,
-                                    "train.batched_images": STEPS * B}
+                                    "train.batched_images": STEPS * B,
+                                    "val.cached_views": N_TRAIN}
 
     def test_batched_images_counted_with_spans_off(self):
         idm, fbatch, rays, up = pil.random_step(pil.SMALL["dino"], nan_image=False)
